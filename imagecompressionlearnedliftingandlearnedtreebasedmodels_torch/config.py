@@ -3,12 +3,17 @@
 A copy of the JAX package's ``Config`` schema and JSON loader, so that both
 packages read the same config files, plus :func:`flagship_config` (the
 paper's main configuration) and :func:`resolve_device`.
+
+Sweeps: :func:`expand_sweep` turns a ``multi_agent``/``multi_param`` config
+into one resolved config per value, with ``exp_name`` rewritten to
+``<multi_exp_name>/exp_<value>``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Union
 
@@ -162,6 +167,48 @@ def config_from_dict(raw: dict) -> Config:
 def get_config_from_json(path: str) -> Config:
     with open(path, "r") as fh:
         return config_from_dict(json.load(fh))
+
+
+def process_config(path: str, experiments_root: str = "experiments") -> Config:
+    """Load a config and create its experiment directory tree
+    ``<experiments_root>/<exp_name>/{summaries,checkpoints,out,logs}``."""
+    return _attach_dirs(get_config_from_json(path), experiments_root)
+
+
+def _attach_dirs(cfg: Config, experiments_root: str) -> Config:
+    base = os.path.join(experiments_root, cfg.exp_name)
+    cfg.summary_dir = os.path.join(base, "summaries")
+    cfg.checkpoint_dir = os.path.join(base, "checkpoints")
+    cfg.out_dir = os.path.join(base, "out")
+    cfg.log_dir = os.path.join(base, "logs")
+    for d in (cfg.summary_dir, cfg.checkpoint_dir, cfg.out_dir, cfg.log_dir):
+        os.makedirs(d, exist_ok=True)
+    return cfg
+
+
+def expand_sweep(cfg: Config, experiments_root: str = "experiments"
+                 ) -> List[Config]:
+    """Expand a ``multi_agent`` sweep into one config per value of
+    ``multi_param``, each with a scalar value, its own ``exp_name``
+    ``<multi_exp_name>/exp_<value>`` and its own directories."""
+    if not cfg.multi_agent:
+        return [cfg]
+    values = getattr(cfg, cfg.multi_param)
+    if not isinstance(values, (list, tuple)):
+        values = [values]
+    out = []
+    for v in values:
+        sub = dataclasses.replace(cfg)
+        setattr(sub, cfg.multi_param, v)
+        sub.multi_agent = False
+        sub.exp_name = os.path.join(cfg.multi_exp_name or cfg.exp_name,
+                                    f"exp_{v}")
+        out.append(_attach_dirs(sub, experiments_root))
+    return out
+
+
+def to_json(cfg: Config) -> str:
+    return json.dumps(dataclasses.asdict(cfg), indent=2, default=str)
 
 
 def flagship_config(**kw) -> Config:

@@ -1,8 +1,10 @@
-"""Subband entropy models over the wavelet pyramid (NCHW, eval path).
+"""Subband entropy models over the wavelet pyramid (NCHW).
 
-``model(xe, xo_list) -> (info_xe, info_xo_list, xe_qnt, xo_list_qnt)``:
-per-sample self-informations in bits and the hard-rounded subbands fed to
-the synthesis transform.
+``model(xe, xo_list, training=False, generator=None) ->
+(info_xe, info_xo_list, xe_qnt, xo_list_qnt)``: per-sample
+self-informations in bits and the quantized subbands fed to the synthesis
+transform (hard-rounded in eval; with additive uniform noise drawn from
+``generator`` in training).
 
 - ``ZTSepSubbands``: zerotree + causal spatial context (the paper's main
   model). Per finer level a parent-context CNN (plc) on the x2-upsampled
@@ -24,7 +26,7 @@ from ..config import Config, compute_dtype
 from ..ops import register_list
 from ..ops.fast_conv import Conv2d, FastConv3x3
 from ..ops.masked_conv import MaskedConv2d
-from ..ops.math_utils import quantize_dequantize
+from ..ops.math_utils import quantize_dequantize, quantize_noise
 from . import gaussian
 
 
@@ -38,9 +40,9 @@ def _split_sigma_mu(params: torch.Tensor):
     return params[:, 0::2], params[:, 1::2]
 
 
-def _quantize_ctx(x: torch.Tensor) -> torch.Tensor:
-    """Context quantization of the eval path: plain rounding."""
-    return quantize_dequantize(x)
+def _quantize_ctx(x: torch.Tensor, training: bool, generator) -> torch.Tensor:
+    """Context quantization: noise in training, plain rounding in eval."""
+    return quantize_noise(x, generator) if training else quantize_dequantize(x)
 
 
 class _ConvStack(nn.Module):
@@ -140,26 +142,32 @@ class ZTSepSubbands(nn.Module):
     def xe_params(self, xe_qnt: torch.Tensor):
         return _split_sigma_mu(self.pixelcnn_xe(xe_qnt))
 
-    def forward(self, xe: torch.Tensor, xo_list):
+    def forward(self, xe: torch.Tensor, xo_list, training: bool = False,
+                generator=None):
+        """Noise is drawn in the JAX package's order: per subband first the
+        context's, then the likelihood's; LL, coarsest details, then finer."""
         L = self.cfg.dwtlevels
+        noise = (training, generator)
         # LL: causal PixelCNN over its own quantized plane
-        xe_qnt = _quantize_ctx(xe)
+        xe_qnt = _quantize_ctx(xe, *noise)
         sigma, mu = self.xe_params(xe_qnt)
-        _, info_xe = gaussian.self_information_bits(xe, sigma, mu)
+        _, info_xe = gaussian.self_information_bits(xe, sigma, mu, *noise)
 
         info_xo: List = [None] * L
         xo_qnt: List = [None] * L
         # coarsest details: own-plane PixelCNN
-        q = _quantize_ctx(xo_list[L - 1])
+        q = _quantize_ctx(xo_list[L - 1], *noise)
         sigma, mu = self.coarsest_params(q)
-        _, info = gaussian.self_information_bits(xo_list[L - 1], sigma, mu)
+        _, info = gaussian.self_information_bits(xo_list[L - 1], sigma, mu,
+                                                 *noise)
         xo_qnt[L - 1], info_xo[L - 1] = q, info
         con = upsample2(q)
         # finer levels: parent + causal context
         for i in range(L - 2, -1, -1):
-            q = _quantize_ctx(xo_list[i])
+            q = _quantize_ctx(xo_list[i], *noise)
             sigma, mu = self.level_params(i, q, con)
-            _, info = gaussian.self_information_bits(xo_list[i], sigma, mu)
+            _, info = gaussian.self_information_bits(xo_list[i], sigma, mu,
+                                                     *noise)
             xo_qnt[i], info_xo[i] = q, info
             con = upsample2(q)
         return info_xe, info_xo, xe_qnt, xo_qnt

@@ -1,4 +1,4 @@
-"""Codec graphs (NCHW, eval path).
+"""Codec graphs (NCHW).
 
 ``LiftingDWTCodec`` = analysis transform -> entropy model -> synthesis.
 ``CodecWrapper`` handles the color-channel policy: ``clrch == 3`` runs one
@@ -28,9 +28,11 @@ class LiftingDWTCodec(nn.Module):
         self.transform = make_transform(cfg)
         self.entropymodel = make_entropy_model(cfg)
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, training: bool = False,
+                generator=None):
         xe, xo_list = self.transform.encode(x)
-        info_xe, info_xo_list, xe_qnt, xo_qnt = self.entropymodel(xe, xo_list)
+        info_xe, info_xo_list, xe_qnt, xo_qnt = self.entropymodel(
+            xe, xo_list, training, generator)
         xhat = self.transform.decode(xe_qnt, xo_qnt)
         return xhat, info_xe, info_xo_list
 
@@ -39,8 +41,10 @@ class LiftingDWTCodec(nn.Module):
 
 
 class CodecWrapper(nn.Module):
-    """Color-policy wrapper; ``forward`` returns
-    ``(xhat, info_xe, info_xo_list, aux_loss)``.
+    """Color-policy wrapper; ``forward(x, training=False, generator=None)``
+    returns ``(xhat, info_xe, info_xo_list, aux_loss)``. In training the
+    quantizers add uniform noise drawn from ``generator``; the default is
+    the eval forward (hard rounding).
 
     Conv weights start from flax's ``lecun_normal`` (std 1/sqrt(fan_in))
     drawn from ``generator``; biases start at zero and the GDN and lifting
@@ -60,11 +64,13 @@ class CodecWrapper(nn.Module):
                                          for _ in range(3)])
         reset_conv_weights(self, generator)
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, training: bool = False,
+                generator=None):
         if self.cfg.clrch == 3:
-            xhat, info_xe, info_xo = self.codec(x)
+            xhat, info_xe, info_xo = self.codec(x, training, generator)
             return xhat, info_xe, info_xo, self.codec.aux_loss()
-        outs = [self.codecs[i](x[:, i:i + 1]) for i in range(3)]
+        outs = [self.codecs[i](x[:, i:i + 1], training, generator)
+                for i in range(3)]
         xhat = torch.cat([o[0] for o in outs], dim=1)
         info_xe = torch.cat([o[1] for o in outs], dim=1)
         info_xo_list: List = []

@@ -1,19 +1,33 @@
-"""SAME 3x3 convolution: the hand-written CUDA kernel and its plain version.
+"""SAME 3x3 convolution: the hand-written CUDA kernel, its backward and
+their plain versions.
 
 Counterpart of the JAX package's Pallas kernel
-``ops/pallas_conv.py::_conv3x3_halo_fwd``: a zero-padded SAME 3x3 conv with
-no bias whose operands are cast to ``dtype`` (bf16 or fp32) and whose sums
-and output are fp32.
+``ops/pallas_conv.py::_conv3x3_halo_fwd`` and of its ``_bwd``: a
+zero-padded SAME 3x3 conv with no bias whose operands are cast to ``dtype``
+(bf16 or fp32) and whose sums and output are fp32.
 
-- On a CUDA tensor :func:`conv3x3_halo` launches the kernel of
-  ``csrc/conv3x3_halo.cu`` (built with ``nvcc`` for ``sm_90a`` at first use
-  into this package's ``build/`` directory and loaded with ``ctypes``) or
-  raises. It never falls back to another path.
-- On a CPU tensor it computes :func:`conv3x3_halo_plain`, a plain
+:func:`conv3x3_halo` is a ``torch.autograd.Function`` on both devices:
+
+- forward, on a CUDA tensor: the kernel of ``csrc/conv3x3_halo.cu`` (built
+  with ``nvcc`` for ``sm_90a`` at first use into this package's ``build/``
+  directory and loaded with ``ctypes``), or it raises. It never falls back
+  to another path. On a CPU tensor: :func:`conv3x3_halo_plain`, a plain
   ``F.conv2d`` in fp32 on operands cast as the kernel casts them.
+- backward, as ``_bwd`` computes it. ``dy`` is rounded to ``dtype``.
+  **dx** is the same conv of ``dy`` with the spatially flipped, in/out
+  swapped weight: on a CUDA tensor the same kernel with Cin and Cout
+  swapped (a 3->96 layer's dx is a 96->3 conv and takes the kernel's narrow
+  Cout tile). **dk** is, as in the JAX package, not a kernel: the nine
+  shifted views of the zero-padded input against ``dy``, operands in
+  ``dtype``, fp32 sums and an fp32 result (one matrix product).
+  On a CPU tensor both are :func:`conv3x3_halo_bwd_plain`.
 
-The module-level ``launches`` counts kernel launches; a run sets it to 0
-and reads it back to show which path it went through.
+The input is saved for the backward already cast to ``dtype``. Autograd
+through the plain forward would not do: it never rounds ``dy``.
+
+The module-level ``launches`` counts kernel launches (forward and dx) and
+``launches_dx`` those of them made for a dx; a run sets them to 0 and reads
+them back to show which path it went through.
 """
 
 from __future__ import annotations
@@ -37,7 +51,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 OPERAND_DTYPES = (torch.float32, torch.bfloat16)
 
-launches = 0  # kernel launches; callers reset it to 0 before a counted run
+launches = 0     # kernel launches; callers reset it to 0 before a counted run
+launches_dx = 0  # those of them that computed a dx
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -131,14 +146,105 @@ def launch_kernel(x: torch.Tensor, wt: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def tap_major(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """(Cout, Cin, 3, 3) -> the kernel's (9, Cin, Cout), ``t = 3*du + dv``."""
+    cout, cin = weight.shape[:2]
+    return weight.to(dtype).permute(2, 3, 1, 0).reshape(9, cin, cout
+                                                        ).contiguous()
+
+
+def flip_swap(weight: torch.Tensor) -> torch.Tensor:
+    """The weight of the dx conv, in PyTorch layout (Cin, Cout, 3, 3):
+    ``w'[c, o, du, dv] = w[o, c, 2-du, 2-dv]``."""
+    return weight.flip(2, 3).transpose(0, 1)
+
+
+def _mm_t_fp32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a.T @ b`` with fp32 sums and an fp32 result, for (K, M) and (K, N)
+    operands of one dtype. bf16 operands on a GPU keep their type and the
+    product accumulates and returns fp32 (``out_dtype``, which only CUDA
+    takes); on the CPU they are widened first, and the products of the fp32
+    copies are the same exact values."""
+    if a.dtype == torch.float32:
+        return torch.mm(a.t(), b)
+    if a.device.type == "cuda":
+        return torch.mm(a.t(), b, out_dtype=torch.float32)
+    return torch.mm(a.float().t(), b.float())
+
+
+def dk_product(xq: torch.Tensor, dyq: torch.Tensor) -> torch.Tensor:
+    """dk[o, c, du, dv] = sum_{b,y,x} x[b, c, y+du-1, x+dv-1] * dy[b, o, y, x]
+    for operands already cast; fp32 (Cout, Cin, 3, 3).
+
+    The nine shifted views of the zero-padded input are gathered into one
+    (B*H*W, 9*Cin) matrix (one copy, nine times the input's bytes) and
+    contracted with dy in one product."""
+    b, cin, h, w = xq.shape
+    cout = dyq.shape[1]
+    xp = F.pad(xq.permute(0, 2, 3, 1), (0, 0, 1, 1, 1, 1)).contiguous()
+    sb, sh, sw, sc = xp.stride()                  # NHWC, padded
+    cols = xp.as_strided((b, h, w, 3, 3, cin), (sb, sh, sw, sh, sw, sc)
+                         ).reshape(b * h * w, 9 * cin)
+    dyf = dyq.permute(0, 2, 3, 1).reshape(b * h * w, cout)
+    return _mm_t_fp32(cols, dyf).view(3, 3, cin, cout).permute(3, 2, 0, 1)
+
+
+def conv3x3_halo_bwd_plain(x: torch.Tensor, weight: torch.Tensor,
+                           dy: torch.Tensor,
+                           dtype: torch.dtype = torch.bfloat16):
+    """The backward in plain PyTorch: ``(dx, dk)`` for x (B,Cin,H,W), weight
+    (Cout,Cin,3,3) and dy (B,Cout,H,W). Operands (x, weight, dy) are rounded
+    to ``dtype`` and every sum is fp32; dx comes back in x's dtype, dk in
+    fp32."""
+    dx = conv3x3_halo_plain(dy, flip_swap(weight), dtype).to(x.dtype)
+    dk = dk_product(x.to(dtype).float(), dy.to(dtype).float())
+    return dx, dk
+
+
+class _Conv3x3Halo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, dtype):
+        on_card = x.device.type == "cuda"
+        xq = x.to(dtype)
+        if on_card:
+            xq = xq.contiguous(memory_format=torch.channels_last)
+        ctx.save_for_backward(xq, weight)
+        ctx.dtype, ctx.x_dtype = dtype, x.dtype
+        if on_card:
+            return launch_kernel(xq, tap_major(weight, dtype))
+        return conv3x3_halo_plain(xq, weight, dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        global launches_dx
+        xq, weight = ctx.saved_tensors
+        dtype = ctx.dtype
+        need_dx, need_dk = ctx.needs_input_grad[:2]
+        dx = dk = None
+        if dy.device.type != "cuda":
+            # rounding the saved, already rounded input again changes nothing
+            dx, dk = conv3x3_halo_bwd_plain(xq.to(ctx.x_dtype), weight, dy,
+                                            dtype)
+            return (dx if need_dx else None, dk if need_dk else None, None)
+        dyq = dy.to(dtype).contiguous(memory_format=torch.channels_last)
+        if need_dx:
+            dx = launch_kernel(dyq, tap_major(flip_swap(weight), dtype)
+                               ).to(ctx.x_dtype)
+            launches_dx += 1
+        if need_dk:
+            dk = dk_product(xq, dyq)
+        return dx, dk, None
+
+
 def conv3x3_halo(x: torch.Tensor, weight: torch.Tensor,
                  dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """SAME 3x3 conv, zero padding, no bias; fp32 output.
+    """SAME 3x3 conv, zero padding, no bias; fp32 output; differentiable in
+    ``x`` and ``weight``.
 
     x: (B, Cin, H, W); weight: (Cout, Cin, 3, 3) (PyTorch layout); operands
     are cast to ``dtype`` (bf16 or fp32). A CUDA input runs the hand-written
-    kernel and comes back in ``channels_last``; a CPU input runs the plain
-    version.
+    kernel, forward and dx, and comes back in ``channels_last``; a CPU input
+    runs the plain versions.
     """
     if dtype not in OPERAND_DTYPES:
         raise ValueError(f"conv3x3_halo: operand dtype must be fp32 or bf16, "
@@ -146,14 +252,6 @@ def conv3x3_halo(x: torch.Tensor, weight: torch.Tensor,
     if weight.shape[1:] != (x.shape[1], 3, 3):
         raise ValueError(f"conv3x3_halo: weight {tuple(weight.shape)} does not "
                          f"fit input {tuple(x.shape)}")
-    if x.device.type == "cpu":
-        return conv3x3_halo_plain(x, weight, dtype)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"conv3x3_halo: unsupported device {x.device}")
-    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):
-        raise RuntimeError("conv3x3_halo: the CUDA kernel has no backward yet; "
-                           "run under torch.no_grad() or inference_mode()")
-    xc = x.to(dtype).contiguous(memory_format=torch.channels_last)
-    cout, cin = weight.shape[:2]
-    wt = weight.to(dtype).permute(2, 3, 1, 0).reshape(9, cin, cout).contiguous()
-    return launch_kernel(xc, wt)
+    return _Conv3x3Halo.apply(x, weight, dtype)

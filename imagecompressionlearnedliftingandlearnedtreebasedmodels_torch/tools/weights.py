@@ -1,4 +1,4 @@
-"""Carrying flax weights across to the port.
+"""Carrying weights between the flax tree and the port, both ways.
 
 A flax params tree is read as a flat ``{keystr: ndarray}`` dict, the format
 of the committed ``results/ckpt_snapshots/*.npz`` (f16 leaves plus an
@@ -9,6 +9,10 @@ The port names that parameter ``codecs.0.entropymodel.plc_0.Conv_1.weight``.
 - conv ``kernel`` (kh, kw, in/G, out) -> ``weight`` (out, in/G, kh, kw);
 - ``bias``, GDN ``beta``/``gamma`` (reparametrized), lifting ``taps`` and
   gains ``nh``/``nl`` are copied raw.
+
+A gradient tree has the parameter tree's shape, so the same functions carry
+gradients. :func:`flax_params_from_state_dict` is the inverse: a checkpoint
+trained by the port loads into the JAX package.
 """
 
 from __future__ import annotations
@@ -77,13 +81,37 @@ def state_dict_from_flax(flat: Mapping[str, np.ndarray]
         if key in SKIP_KEYS:
             continue
         name = port_name(key)
-        t = torch.from_numpy(np.asarray(value, dtype=np.float32))
+        t = torch.from_numpy(np.array(value, dtype=np.float32))
         if name.rsplit(".", 1)[-1] == "weight":
             if t.dim() != 4:
                 raise ValueError(f"{key}: conv kernel must be 4-D, got "
                                  f"{tuple(t.shape)}")
             t = t.permute(3, 2, 0, 1)
         out[name] = t.contiguous()
+    return out
+
+
+def flax_key(name: str) -> str:
+    """Port parameter name -> flax keystr (inverse of :func:`port_name`)."""
+    *path, leaf = re.sub(r"\bcodecs\.(\d+)", r"codecs_\1", name).split(".")
+    if leaf == "weight":
+        leaf = "kernel"
+    elif leaf not in _RAW_LEAVES:
+        raise KeyError(f"unknown parameter kind {leaf!r} in {name!r}")
+    return "".join(f"['{s}']" for s in path + [leaf])
+
+
+def flax_params_from_state_dict(sd: Mapping[str, torch.Tensor]
+                                ) -> Dict[str, np.ndarray]:
+    """Port ``state_dict`` -> ``{keystr: ndarray}`` in the flax layout (fp32;
+    :func:`unflatten_params` makes the nested tree). Inverse of
+    :func:`state_dict_from_flax`."""
+    out: Dict[str, np.ndarray] = {}
+    for name, t in sd.items():
+        t = t.detach().to("cpu", torch.float32)
+        if name.rsplit(".", 1)[-1] == "weight":
+            t = t.permute(2, 3, 1, 0)
+        out[flax_key(name)] = np.ascontiguousarray(t.numpy())
     return out
 
 

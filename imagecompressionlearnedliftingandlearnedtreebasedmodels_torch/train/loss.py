@@ -38,3 +38,14 @@ def psnr(x, xhat, peak: float = 1.0) -> torch.Tensor:
     """Per-image PSNR averaged over the batch."""
     mse = torch.mean((x - xhat) ** 2, dim=tuple(range(1, x.dim())))
     return torch.mean(-10.0 * torch.log10(mse / (peak ** 2)))
+
+
+def valid_rd_loss(x, xhat, info_xe, info_xo_list: List, lambda_: float):
+    """PSNR-based validation objective: ``(psnr + lambda * rate, psnr,
+    rate)``."""
+    numel = float(x.numel())
+    p = psnr(x, xhat)
+    rate = torch.sum(info_xe) / numel * 3.0
+    for info in info_xo_list:
+        rate = rate + torch.sum(info) / numel * 3.0
+    return p + rate * lambda_, p, rate

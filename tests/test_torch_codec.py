@@ -35,6 +35,10 @@ from imagecompressionlearnedliftingandlearnedtreebasedmodels_tpu.models.codec im
 from imagecompressionlearnedliftingandlearnedtreebasedmodels_tpu.train import (
     state as jstate)
 
+# The suite runs several workers at once, and PyTorch's default of one
+# thread per core in each of them oversubscribes the CPU many times over.
+torch.set_num_threads(1)
+
 SNAPSHOT = os.path.join(os.path.dirname(os.path.dirname(__file__)),
                         "results", "ckpt_snapshots", "flagship_lam2000.npz")
 FLAGSHIP = dict(netType="LiftingBasedNeuralWaveletv4",

@@ -22,6 +22,10 @@ from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.ops.fast_conv
 from imagecompressionlearnedliftingandlearnedtreebasedmodels_tpu.ops import (
     pallas_conv)
 
+# The suite runs several workers at once, and PyTorch's default of one
+# thread per core in each of them oversubscribes the CPU many times over.
+torch.set_num_threads(1)
+
 # fp32 sums of at most 9*32 products in another order than XLA's
 TOL = 1e-4
 

@@ -1,7 +1,7 @@
 """The port stands alone: no source of it (nor ``chip_smoke.py``) imports
 JAX, flax, optax or the JAX package; it imports with those blocked; the
-flagship snapshot fills every port parameter; and its entry point does not
-fall back to the CPU on its own."""
+flagship snapshot fills every port parameter; and its entry points (eval
+step, train step, agent, CLI) do not fall back to the CPU on their own."""
 
 import ast
 import os
@@ -11,13 +11,18 @@ import sys
 import pytest
 import torch
 
-from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch import config
+from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch import (
+    cli, config)
 from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.models.codec import (
     CodecWrapper)
 from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.tools import (
     weights)
 from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.train import (
-    state)
+    loop, state)
+
+# The suite runs several workers at once, and PyTorch's default of one
+# thread per core in each of them oversubscribes the CPU many times over.
+torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = "imagecompressionlearnedliftingandlearnedtreebasedmodels_torch"
@@ -107,3 +112,27 @@ def test_entry_point_needs_cuda_unless_cpu_is_asked(monkeypatch):
     step = state.make_eval_step(cfg, CodecWrapper(cfg), device="cpu")
     out, xhat = step(torch.rand(1, 3, 16, 16))
     assert torch.isfinite(out.loss) and xhat.device.type == "cpu"
+
+
+def test_training_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch,
+                                                             tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    cfg = config.flagship_config(dwtlevels=2, batch_size=1, patch_size=16,
+                                 steps_per_epoch=1, max_epoch=0)
+    model = CodecWrapper(cfg)
+    opt = state.make_optimizer(cfg, model)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        state.make_train_step(cfg, model, opt)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        loop.LiftingDWTAgent(cfg)
+    with open("c.json", "w") as fh:
+        fh.write(config.to_json(cfg))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["c.json"])
+    step = state.make_train_step(cfg, model, opt, device="cpu")
+    out, _ = step(torch.rand(1, 3, 16, 16), torch.Generator().manual_seed(0),
+                  1e-4, 1.0)
+    assert torch.isfinite(out.loss) and out.loss.device.type == "cpu"
+    assert loop.LiftingDWTAgent(cfg, device="cpu").device.type == "cpu"
+    assert cli.main(["--device", "cpu", "c.json"]) == 0

@@ -20,6 +20,10 @@ from imagecompressionlearnedliftingandlearnedtreebasedmodels_tpu.entropy import 
 from imagecompressionlearnedliftingandlearnedtreebasedmodels_tpu.ops import (
     color as jc, gdn as jgdn, masked_conv as jmc, math_utils as jmu)
 
+# The suite runs several workers at once, and PyTorch's default of one
+# thread per core in each of them oversubscribes the CPU many times over.
+torch.set_num_threads(1)
+
 
 def nchw(x):
     return torch.from_numpy(np.ascontiguousarray(np.transpose(x, (0, 3, 1, 2))))

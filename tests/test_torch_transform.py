@@ -31,6 +31,10 @@ from imagecompressionlearnedliftingandlearnedtreebasedmodels_tpu.models import (
 from imagecompressionlearnedliftingandlearnedtreebasedmodels_tpu.ops import (
     lifting as jlift, subband_ae as jae)
 
+# The suite runs several workers at once, and PyTorch's default of one
+# thread per core in each of them oversubscribes the CPU many times over.
+torch.set_num_threads(1)
+
 TOL = 1e-4
 
 
