@@ -8,7 +8,8 @@ Each phase prints one JSON line; any fault ends the run with a non-zero
 exit code and no result line:
 
 1. card    the card's name and power limit (nvidia-smi) and torch's name;
-2. build   ``csrc/conv3x3_halo.cu`` compiled with nvcc for sm_90a;
+2. build   ``csrc/conv3x3_halo.cu`` and ``csrc/lift97.cu`` compiled with
+           nvcc for sm_90a, both at once;
 3. kernel  the hand-written conv3x3_halo kernel against its plain PyTorch
            version at every distinct eval-path shape (B=8, 512x768) in bf16
            and fp32 operands, with its time, the plain version's, cuDNN's
@@ -47,19 +48,45 @@ exit code and no result line:
            save; then ``--resume-training`` restores epoch, iteration, lr
            and the Adam moments and takes one more epoch.
 
+Then the CDF 9/7 + factorized codec (``configs/cdf97_factorized.json`` at
+full width: joint RGB, 4 levels, pointwise AEs, factorized bottlenecks,
+fp32, random weights from the port's seeded init):
+
+11. lift97_kernel  the ladder kernels in all four uses (analysis: the
+           forward F and the adjoint of the inverse; synthesis: the inverse
+           I and the adjoint of the forward) against their plain versions
+           along H and W, at every distinct shape of the CDF97 eval path
+           (B=8 512x768) and train path (B=4 256x256) and at
+           ``scripts/bench_pallas.py``'s shapes; the adjoint identities on
+           the card; times, the plain versions', the bound, and as the
+           yardstick the same transform as one strided cuDNN conv (or
+           transposed conv) with the 9/7 filters on a circularly padded
+           input, never used by the port;
+12. cdf97_parity  the eval step card vs CPU on one 256x256 image, then one
+           train step card vs CPU with the training noise pinned to zero;
+13. cdf97_main  the eval step at B=8 512x768 (ms, MP/s, bpp, PSNR, the
+           ladder's launches against 24 a step), then one step profiled;
+14. cdf97_train  the train step at the config's batch, 4 x 256x256, Adam at
+           lr 1e-4: 2 warm-up and 10 timed steps (launches against 36 a
+           step), then one step profiled;
+15. cdf97_agent  the CLI on the config cut to 2 steps an epoch and 2
+           epochs, then ``--resume-training``.
+
 Then a ``kernels`` line, the card's name and power limit again, and the
 last line ``{"ok": true, "device": {...}}``.
 
-TF32 is off (cuDNN and matmul) for every fp32 comparison: phases 3 to 6
-and the fp32 step of phase 7.
+TF32 is off (cuDNN and matmul) for every fp32 comparison: phases 3 to 6,
+the fp32 step of phase 7, and phases 11 and 12.
 """
 
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import copy
 import json
+import math
 import os
 import subprocess
 import sys
@@ -70,6 +97,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SNAPSHOT = os.path.join(HERE, "results", "ckpt_snapshots",
                         "flagship_lam2000.npz")
 CONFIG = os.path.join(HERE, "configs", "flagship_lifting_ztsep.json")
+CDF97_CONFIG = os.path.join(HERE, "configs", "cdf97_factorized.json")
 B, H, W = 8, 512, 768            # the served workload: a batch of Kodak-size
 STEPS = 3                        # timed eval steps of phase `main`
 TRAIN_B, TRAIN_P = 8, 256        # the training workload: 8 patches of 256x256
@@ -78,6 +106,10 @@ TRAIN_LR = 1e-4
 PARITY_B, PARITY_P = 2, 128      # the train step compared with the CPU's
 AGENT = dict(batch_size=2, patch_size=128, dtype="float32", lambda_=2000.0,
              multi_agent=False, steps_per_epoch=4, max_epoch=2)
+CDF97_SEED = 0                   # the port's init of the CDF97 codec
+CDF97_TRAIN_B = 4                # the config's batch_size and patch_size
+CDF97_AGENT = dict(multi_agent=False, steps_per_epoch=2, max_epoch=2)
+BENCH_PALLAS_SHAPES = ((8, 3, 512, 768), (1, 3, 2048, 2048))  # NCHW
 DEV = "cuda"
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, fp32 CUDA
 # cores, HBM3.
@@ -103,6 +135,17 @@ PARITY_RTOL = 1e-4  # loss, mse, rates: card vs CPU, fp32
 # the difference over all gradients together.
 GRAD_TOL = 1e-2
 GRAD_L2_TOL = 1e-3
+LADDER_TOL = 1e-5   # ladder kernel vs plain, of max |plain|: the same fp32
+                    # expressions, contracted into FMAs by the compiler
+ADJOINT_TOL = 1e-5  # |<Fx, y> - <x, F^T y>| / (|Fx| |y|), fp32 values
+                    # summed in float64
+LIBRARY_TOL = 1e-4  # the conv yardstick vs plain: 9 fp32 taps in another
+                    # order (it is timed, never used by the port)
+# CDF97 train step, card vs CPU, noise pinned: a shallow graph (pointwise
+# AEs, per-channel MLPs, the linear ladder), held as the CPU tests hold
+# the port against the JAX package at 64x64.
+CDF97_GRAD_TOL = 1e-3
+CDF97_GRAD_L2_TOL = 1e-4
 XHAT_MEAN_TOL = 1e-5   # mean |xhat_card - xhat_cpu|
 XHAT_MAX_TOL = 5e-2    # max: one rounding that flips moves a few pixels
 BF16_BPP_RTOL = 5e-2   # bf16 vs fp32 step on the same batch
@@ -124,6 +167,48 @@ def expect_launches(got, want, what) -> None:
     if got != want:
         raise AssertionError(f"{what} launched the kernel {got} times, "
                              f"expected {want}")
+
+
+class Counts:
+    """The kernel modules' launch counters, set to 0 and read together."""
+
+    def __init__(self, conv, lift):
+        self.conv, self.lift = conv, lift
+
+    def reset(self):
+        self.conv.launches = self.conv.launches_dx = 0
+        self.lift.launches_lift = self.lift.launches_ilift = 0
+
+    def read(self):
+        return {"conv3x3_halo": self.conv.launches,
+                "conv3x3_halo_dx": self.conv.launches_dx,
+                "lift97": self.lift.launches_lift,
+                "ilift97": self.lift.launches_ilift}
+
+
+def launches_of(conv=0, conv_dx=0, lift=0, ilift=0):
+    return {"conv3x3_halo": conv, "conv3x3_halo_dx": conv_dx,
+            "lift97": lift, "ilift97": ilift}
+
+
+def ladder_launches(cfg, train: bool):
+    """(analysis, synthesis) kernel launches of one CDF97 step: three
+    passes a level each way; a train step's backward adds the adjoint of the
+    inverse (the analysis kernel). The image needs no gradient, so the
+    adjoint of the forward never runs on the path."""
+    per = 3 * cfg.dwtlevels
+    return (2 * per if train else per), per
+
+
+def ladder_shapes(levels, b, h, w):
+    """Distinct (NCHW input shape of an analysis pass, dim) of a CDF97 step
+    on B x 3 x H x W images, each with its passes per step (each way)."""
+    out = {}
+    for lvl in range(levels):
+        hh, ww = h >> lvl, w >> lvl
+        for key, n in ((((b, 3, hh, ww), 2), 1), (((b, 3, hh // 2, ww), 3), 2)):
+            out[key] = out.get(key, 0) + n
+    return out
 
 
 def conv_shapes(cfg, size=None):
@@ -155,22 +240,11 @@ def conv_shapes(cfg, size=None):
 
 
 def unported_kernel_bounds():
-    """The card's bound for the TPU kernels still to be ported, at the
-    shapes their benchmark scripts use: reckoned from the shapes alone (no
-    kernel exists to time). The CDF 9/7 lifting ladder moves each fp32
-    array once in and once out and does about 14 operations a sample, so
-    bytes bound it; the single-product conv does the forward kernel's
-    operations on bf16 operands."""
+    """The card's bound for the TPU kernel still to be ported, the
+    single-product conv of ``scripts/bench_pallas_v2.py``, at the shapes of
+    the flagship's wide 3x3 convs: reckoned from the shapes alone (no kernel
+    exists to time), the forward kernel's operations on bf16 operands."""
     rows = []
-    for name in ("lift97_rows_fused", "ilift97_rows_fused"):
-        for shape in ((8, 512, 768, 3), (1, 2048, 2048, 3)):
-            n = shape[0] * shape[1] * shape[2] * shape[3]
-            t_bytes = 2 * n * 4 / PEAK_BYTES * 1e3
-            t_ops = 14 * n / PEAK_FLOPS["float32"] * 1e3
-            rows.append({"kernel": name, "shape": list(shape),
-                         "dtype": "float32", "bound_ms": max(t_bytes, t_ops),
-                         "bound_by": "bytes" if t_bytes >= t_ops
-                         else "operations"})
     for (b, h, w, cin), cout in (((8, 256, 384, 96), 192),
                                  ((8, 256, 384, 192), 96),
                                  ((8, 128, 192, 96), 192)):
@@ -601,34 +675,32 @@ def working_dir(path):
         os.chdir(old)
 
 
-def phase_agent(torch, pkg, conv):
-    """The CLI on a copy of the flagship config: two epochs, then a resumed
-    run. What the resumed run restored is read from the checkpoint files:
-    between the runs the saved learning rate is halved, so that a restored
-    value can be told from the config's."""
-    with open(CONFIG) as fh:
+def phase_agent(torch, pkg, counts, config_path, overrides, reckon,
+                name="agent"):
+    """The CLI on a copy of a config cut by ``overrides``: two epochs, then
+    a resumed run. ``reckon(cfg, n_valid)`` gives the kernels' launches in
+    the first run. What the resumed run restored is read from the
+    checkpoint files: between the runs the saved learning rate is halved,
+    so that a restored value can be told from the config's."""
+    with open(config_path) as fh:
         raw = json.load(fh)
-    raw.update(AGENT, exp_name="smoke_agent")
-    steps, epochs = AGENT["steps_per_epoch"], AGENT["max_epoch"]
+    raw.update(overrides, exp_name=f"smoke_{name}")
+    steps, epochs = raw["steps_per_epoch"], raw["max_epoch"]
     with tempfile.TemporaryDirectory() as tmp, working_dir(tmp):
         with open("agent.json", "w") as fh:
             json.dump(raw, fh)
         cfg = pkg.config.get_config_from_json("agent.json")
         ckpt_dir = os.path.join("experiments", cfg.exp_name, "checkpoints")
-        n_conv = sum(conv_shapes(cfg).values())
         n_valid = len(list(pkg.data.ImageDataLoader(cfg).valid_batches()))
 
-        conv.launches = conv.launches_dx = 0
+        counts.reset()
         t0 = time.perf_counter()
         if pkg.cli.main(["agent.json"]) != 0:
             raise AssertionError("the CLI returned non-zero")
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
-        launches, dx = conv.launches, conv.launches_dx
-        expect_launches(
-            (launches, dx),
-            (epochs * (steps * 2 * n_conv + n_valid * n_conv),
-             epochs * steps * n_conv), "the agent's run (all, dx)")
+        launches = counts.read()
+        expect_launches(launches, reckon(cfg, n_valid), f"the {name} run")
         files = sorted(os.listdir(ckpt_dir))
         if files != ["checkpoint.pt", "model_best.pt"]:
             raise AssertionError(f"checkpoint files: {files}")
@@ -651,11 +723,12 @@ def phase_agent(torch, pkg, conv):
         return sorted({float(st["step"])
                        for st in payload["optimizer"]["state"].values()})
 
-    res = {"phase": "agent", "batch": [cfg.batch_size, 3, cfg.patch_size,
-                                       cfg.patch_size], "dtype": cfg.dtype,
+    res = {"phase": name, "config": os.path.basename(config_path),
+           "batch": [cfg.batch_size, 3, cfg.patch_size, cfg.patch_size],
+           "dtype": cfg.dtype,
            "first_run": {"epoch": one["epoch"], "iteration": one["iteration"],
                          "adam_steps": adam_steps(one), "seconds": first_s,
-                         "kernel_launches": launches, "dx_launches": dx},
+                         "launches": launches},
            "resumed_run": {"epoch": two["epoch"],
                            "iteration": two["iteration"],
                            "adam_steps": adam_steps(two),
@@ -672,7 +745,7 @@ def phase_agent(torch, pkg, conv):
     got = {"first": (one["epoch"], one["iteration"], adam_steps(one)),
            "resumed": (two["epoch"], two["iteration"], adam_steps(two))}
     if got != want:
-        raise AssertionError(f"agent counters {got}, expected {want}")
+        raise AssertionError(f"{name} counters {got}, expected {want}")
     if two["scheduler"]["lr"] != half_lr \
             or two["optimizer"]["param_groups"][0]["lr"] != half_lr:
         raise AssertionError("the resumed run did not restore the lr")
@@ -681,6 +754,413 @@ def phase_agent(torch, pkg, conv):
                        for r in rows):
         raise AssertionError(f"agent metrics: {rows}")
     return res
+
+# --- the CDF 9/7 + factorized codec ------------------------------------------
+
+def ladder_filters(torch, lift):
+    """The filters that the 9/7 ladder implies, read off its plain version
+    in float64 with unit impulses: the analysis taps of (low_i, high_i) over
+    x[2i-4 .. 2i+4] as a (2, 9) weight, and the synthesis taps of pair i's
+    low and high sample over x[2i+r0 ..] as a (2, K) weight, with r0."""
+    n, i = 64, 16
+    eye = torch.eye(n, dtype=torch.float64)
+    lo, hi = lift.analysis_plain(eye, 1)             # [k, i]: impulse at k
+    wa = torch.stack([lo[2 * i - 4:2 * i + 5, i], hi[2 * i - 4:2 * i + 5, i]])
+    if int((lo[:, i].abs() > 1e-12).sum() + (hi[:, i].abs() > 1e-12).sum()) \
+            != int((wa.abs() > 1e-12).sum()):
+        raise AssertionError("the 9/7 analysis reaches beyond 9 taps")
+    eye_m = torch.eye(n // 2, dtype=torch.float64)
+    zero = torch.zeros_like(eye_m)
+    sl = lift.synthesis_plain(eye_m, zero, 1)        # [i, k]: pair i's low
+    sh = lift.synthesis_plain(zero, eye_m, 1)
+    nz = ((sl[i].abs() > 1e-12) | (sh[i].abs() > 1e-12)).nonzero().flatten()
+    r0, r1 = int(nz.min()) - 2 * i, int(nz.max()) - 2 * i
+    ws = torch.stack([sl[i, 2 * i + r0:2 * i + r1 + 1],
+                      sh[i, 2 * i + r0:2 * i + r1 + 1]])
+    return wa.float(), ws.float(), r0
+
+
+def library_analysis(F, x, dim, wa):
+    """The analysis as one strided conv on a circularly padded input:
+    low and high come back as the two channels."""
+    if dim == 3:
+        xx = x.reshape(-1, 1, x.shape[3])
+        return F.conv1d(F.pad(xx, (4, 4), mode="circular"),
+                        wa.view(2, 1, 9), stride=2)
+    xx = x.reshape(-1, 1, x.shape[2], x.shape[3])
+    return F.conv2d(F.pad(xx, (0, 0, 4, 4), mode="circular"),
+                    wa.view(2, 1, 9, 1), stride=(2, 1))
+
+
+def library_synthesis(torch, F, lo, hi, dim, ws, r0, pad=4):
+    """The synthesis as one strided transposed conv of the stacked, in
+    pairs circularly padded bands; ``x_k`` is output ``k + 2 pad - r0``."""
+    k, m = ws.shape[1], lo.shape[dim]
+    at = 2 * pad - r0
+    if dim == 3:
+        st = torch.stack([lo.reshape(-1, m), hi.reshape(-1, m)], 1)
+        out = F.conv_transpose1d(F.pad(st, (pad, pad), mode="circular"),
+                                 ws.view(2, 1, k), stride=2)
+        return out[:, 0, at:at + 2 * m]
+    w = lo.shape[3]
+    st = torch.stack([lo.reshape(-1, m, w), hi.reshape(-1, m, w)], 1)
+    out = F.conv_transpose2d(F.pad(st, (0, 0, pad, pad), mode="circular"),
+                             ws.view(2, 1, k, 1), stride=(2, 1))
+    return out[:, 0, at:at + 2 * m]
+
+
+def fdot(a, b) -> float:
+    return float((a.double() * b.double()).sum())
+
+
+def fnorm(ts) -> float:
+    return math.sqrt(sum(fdot(t, t) for t in ts))
+
+
+def phase_lift97_kernel(torch, F, lift, cfg):
+    """The ladder kernels in their four uses against the plain versions at
+    every distinct shape of the CDF97 eval and train paths and of
+    ``bench_pallas.py``, along the dim each pass lifts (both dims for the
+    bench shapes); the adjoint identities; times. Returns one row per shape
+    and use."""
+    eval_keys = ladder_shapes(cfg.dwtlevels, B, H, W)
+    train_keys = ladder_shapes(cfg.dwtlevels, CDF97_TRAIN_B, TRAIN_P, TRAIN_P)
+    keys = list(dict.fromkeys(
+        list(eval_keys) + list(train_keys)
+        + [(s, d) for s in BENCH_PALLAS_SHAPES for d in (2, 3)]))
+    wa, ws, r0 = ladder_filters(torch, lift)
+    wa, ws = wa.to(DEV), ws.to(DEV)
+    gen = torch.Generator(device=DEV).manual_seed(2)
+    t = lambda fn: time_ms(fn, torch, min_ms=20.0)  # noqa: E731
+    rows = []
+    for shape, dim in keys:
+        x = torch.randn(shape, device=DEV, generator=gen)
+        half = list(shape)
+        half[dim] //= 2
+        lo = torch.randn(half, device=DEV, generator=gen)
+        hi = torch.randn(half, device=DEV, generator=gen)
+        n = x.numel()
+        # each fp32 sample read once and written once; 4 steps of 3 flops on
+        # half the samples, and a gain on each
+        t_bytes = 2 * n * 4 / PEAK_BYTES * 1e3
+        t_ops = 7 * n / PEAK_FLOPS["float32"] * 1e3
+        with torch.no_grad():
+            fx = lift.launch_analysis(x, dim, lift.FORWARD)
+            fty = lift.launch_synthesis(lo, hi, dim, lift.FORWARD_T)
+            ix = lift.launch_synthesis(lo, hi, dim, lift.INVERSE)
+            itx = lift.launch_analysis(x, dim, lift.INVERSE_T)
+            torch.cuda.synchronize()
+            adjoint = {
+                "F": abs(fdot(fx[0], lo) + fdot(fx[1], hi) - fdot(x, fty))
+                / (fnorm(fx) * fnorm((lo, hi))),
+                "I": abs(fdot(ix, x) - fdot(lo, itx[0]) - fdot(hi, itx[1]))
+                / (fnorm((ix,)) * fnorm((x,)))}
+            got = {"F": fx, "F_T": (fty,), "I": (ix,), "I_T": itx}
+            want = {"F": lift.analysis_plain(x, dim, lift.FORWARD),
+                    "F_T": (lift.synthesis_plain(lo, hi, dim, lift.FORWARD_T),),
+                    "I": (lift.synthesis_plain(lo, hi, dim, lift.INVERSE),),
+                    "I_T": lift.analysis_plain(x, dim, lift.INVERSE_T)}
+            lib_a = library_analysis(F, x, dim, wa)
+            lib_s = library_synthesis(torch, F, lo, hi, dim, ws, r0)
+            lib_err = max(rel_err(lib_a[:, 0].reshape(half), want["F"][0]),
+                          rel_err(lib_a[:, 1].reshape(half), want["F"][1]),
+                          rel_err(lib_s.reshape(shape), want["I"][0]))
+            lib_ms = {"analysis": t(lambda: library_analysis(F, x, dim, wa)),
+                      "synthesis": t(lambda: library_synthesis(
+                          torch, F, lo, hi, dim, ws, r0))}
+            del lib_a, lib_s
+            for use, ladder in (("F", lift.FORWARD), ("I_T", lift.INVERSE_T),
+                                ("I", lift.INVERSE),
+                                ("F_T", lift.FORWARD_T)):
+                analysis = use in ("F", "I_T")
+                abs_err = max((g - w).abs().max().item()
+                              for g, w in zip(got[use], want[use]))
+                rel = max(rel_err(g, w) for g, w in zip(got[use], want[use]))
+                if analysis:
+                    ms = t(lambda: lift.launch_analysis(x, dim, ladder))
+                    plain_ms = t(lambda: lift.analysis_plain(x, dim, ladder))
+                else:
+                    ms = t(lambda: lift.launch_synthesis(lo, hi, dim, ladder))
+                    plain_ms = t(lambda: lift.synthesis_plain(lo, hi, dim,
+                                                              ladder))
+                row = {"phase": "lift97_kernel", "use": use,
+                       "kernel": "lift97" if analysis else "ilift97",
+                       "x": list(shape), "dim": dim,
+                       "launches_eval_step": eval_keys.get((shape, dim), 0)
+                       if use in ("F", "I") else 0,
+                       "launches_train_step": train_keys.get((shape, dim), 0)
+                       if use != "F_T" else 0,
+                       "max_abs_err": abs_err, "max_rel_err": rel,
+                       "ms": ms, "plain_ms": plain_ms,
+                       "library_ms": lib_ms["analysis" if analysis
+                                            else "synthesis"],
+                       "library_rel_err": lib_err,
+                       "bound_ms": max(t_bytes, t_ops),
+                       "bound_by": "bytes" if t_bytes >= t_ops
+                       else "operations",
+                       "gb_per_s": 2 * n * 4 / ms / 1e6,
+                       "adjoint_err": adjoint.get(use)}
+                emit(row)
+                rows.append(row)
+                if not rel <= LADDER_TOL:
+                    raise AssertionError(
+                        f"lift97 {use} {shape} dim {dim}: error {rel:.3e} > "
+                        f"{LADDER_TOL}")
+            if not max(adjoint.values()) <= ADJOINT_TOL:
+                raise AssertionError(f"lift97 {shape} dim {dim}: adjoint "
+                                     f"identity off by {adjoint}")
+            if not lib_err <= LIBRARY_TOL:
+                raise AssertionError(f"the conv yardstick is off by {lib_err}")
+            del got, want, fx, fty, ix, itx
+        del x, lo, hi
+    torch.cuda.empty_cache()
+    return rows
+
+
+def cdf97_config(pkg):
+    return pkg.config.get_config_from_json(CDF97_CONFIG)
+
+
+def cdf97_model(torch, pkg, cfg):
+    return pkg.codec.CodecWrapper(
+        cfg, generator=torch.Generator().manual_seed(CDF97_SEED))
+
+
+@contextlib.contextmanager
+def zero_noise(bottleneck):
+    """The bottlenecks' training noise pinned to zero (both devices then
+    quantize alike)."""
+    old = bottleneck.quantize_noise
+    bottleneck.quantize_noise = lambda x, generator=None: x
+    try:
+        yield
+    finally:
+        bottleneck.quantize_noise = old
+
+
+def phase_cdf97_parity(torch, np, pkg, counts):
+    """The fp32 CDF97 codec on one 256x256 image, card vs CPU, the same
+    seeded init on both; then one train step card vs CPU, noise pinned."""
+    cfg = cdf97_config(pkg)
+    img = pkg.data.synthetic_natural_images(1, 256, seed=0)[0]
+    x = torch.from_numpy(img).permute(2, 0, 1)[None].float() / 255.0
+    cpu_model = cdf97_model(torch, pkg, cfg)
+    gpu_model = copy.deepcopy(cpu_model)
+    want, want_xhat = pkg.state.make_eval_step(cfg, cpu_model, "cpu")(x)
+    step = pkg.state.make_eval_step(cfg, gpu_model, DEV)
+    counts.reset()
+    got, got_xhat = step(x)
+    torch.cuda.synchronize()
+    eval_launches = counts.read()
+    d = (got_xhat.cpu() - want_xhat).abs()
+    lift_n, ilift_n = ladder_launches(cfg, False)
+    res = {"phase": "cdf97_parity", "image": [1, 3, 256, 256],
+           "dtype": "float32", "launches": eval_launches,
+           "xhat_max_abs_err": d.max().item(),
+           "xhat_mean_abs_err": d.mean().item()}
+    for k in ("loss", "mse", "rate1", "rate2"):
+        a, b = float(getattr(got, k)), float(getattr(want, k))
+        res[k] = {"card": a, "cpu": b, "rel_err": abs(a - b) / abs(b)}
+    bad = [k for k in ("loss", "mse", "rate1", "rate2")
+           if not res[k]["rel_err"] <= PARITY_RTOL]
+    if not res["xhat_mean_abs_err"] <= XHAT_MEAN_TOL:
+        bad.append("xhat")
+    del cpu_model, gpu_model, step
+
+    batch = train_batch(torch, np, pkg, PARITY_B, 256, seed=2)
+    results = {}
+    with zero_noise(pkg.bottleneck):
+        for dev in ("cpu", DEV):
+            model = cdf97_model(torch, pkg, cfg)
+            tstep = pkg.state.make_train_step(
+                cfg, model, pkg.state.make_optimizer(cfg, model), dev)
+            counts.reset()
+            out, aux = tstep(batch, torch.Generator().manual_seed(3),
+                             TRAIN_LR, 1.0)
+            if dev != "cpu":
+                torch.cuda.synchronize()
+            results[dev] = (out, float(aux), counts.read(),
+                            {n: p.grad.detach().cpu()
+                             for n, p in model.named_parameters()})
+            del model, tstep
+    (t_want, aux_want, cpu_counts, want_g), (t_got, aux_got, train_counts,
+                                             got_g) = results["cpu"], \
+        results[DEV]
+    tr = {"batch": [PARITY_B, 3, 256, 256], "launches": train_counts,
+          "aux": {"card": aux_got, "cpu": aux_want}}
+    for k in ("loss", "mse", "rate1", "rate2"):
+        a, b = float(getattr(t_got, k)), float(getattr(t_want, k))
+        tr[k] = {"card": a, "cpu": b, "rel_err": abs(a - b) / abs(b)}
+        if not tr[k]["rel_err"] <= PARITY_RTOL:
+            bad.append(f"train {k}")
+    errs = {n: rel_err(got_g[n], want_g[n]) for n in want_g}
+    worst = max(errs, key=errs.get)
+    l2 = (sum(float((got_g[n] - want_g[n]).double().pow(2).sum())
+              for n in want_g)
+          / sum(float(want_g[n].double().pow(2).sum()) for n in want_g)) ** 0.5
+    tr.update(grad_tensors=len(errs), grad_worst=worst,
+              grad_worst_rel_err=errs[worst],
+              grad_tensors_over_1e_4=sum(e > 1e-4 for e in errs.values()),
+              grad_l2_rel_err=l2)
+    res["train"] = tr
+    emit(res)
+    if not errs[worst] <= CDF97_GRAD_TOL or not l2 <= CDF97_GRAD_L2_TOL:
+        bad.append(f"gradient {worst}")
+    if bad:
+        raise AssertionError(f"CDF97 card and CPU disagree: {bad}")
+    lift_t, ilift_t = ladder_launches(cfg, True)
+    expect_launches((eval_launches, cpu_counts, train_counts),
+                    (launches_of(lift=lift_n, ilift=ilift_n), launches_of(),
+                     launches_of(lift=lift_t, ilift=ilift_t)),
+                    "CDF97 parity (eval card, train cpu, train card)")
+
+
+def phase_cdf97_main(torch, np, pkg, counts):
+    """The fp32 CDF97 eval step at B=8 512x768, seeded random weights."""
+    cfg = cdf97_config(pkg)
+    imgs = pkg.data.synthetic_natural_images(B, W, seed=0)
+    batch = torch.from_numpy(np.stack(imgs)[:, :H]).permute(0, 3, 1, 2)
+    batch = batch.float().div(255.0).to(DEV)
+    step = pkg.state.make_eval_step(cfg, cdf97_model(torch, pkg, cfg), DEV)
+    lift_n, ilift_n = ladder_launches(cfg, False)
+
+    t0 = time.perf_counter()
+    step(batch)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    counts.reset()
+    times = []
+    for _ in range(STEPS):
+        t0 = time.perf_counter()
+        out, xhat = step(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = counts.read()
+    expect_launches(launches, launches_of(lift=STEPS * lift_n,
+                                          ilift=STEPS * ilift_n),
+                    f"{STEPS} CDF97 eval steps")
+    bpp = float(out.rate1 + out.rate2)
+    psnr = float(pkg.loss.psnr(batch - 0.5, xhat))
+    if not all(math.isfinite(v) for v in (bpp, psnr, float(out.loss))):
+        raise AssertionError(f"non-finite result: bpp {bpp} psnr {psnr}")
+    if tuple(xhat.shape) != (B, 3, H, W):
+        raise AssertionError(f"xhat shape {tuple(xhat.shape)}")
+    ms = [t * 1e3 for t in times]
+    mean_s = sum(times) / len(times)
+    res = {"phase": "cdf97_main", "config": "cdf97_factorized",
+           "dtype": "float32", "batch": [B, 3, H, W], "steps": STEPS,
+           "bpp": bpp, "psnr_db": psnr, "loss": float(out.loss),
+           "mse": float(out.mse), "rate1": float(out.rate1),
+           "rate2": float(out.rate2), "ms_per_step": mean_s * 1e3,
+           "ms_per_step_min": min(ms), "ms_per_step_all": ms,
+           "mp_per_s": B * H * W / 1e6 / mean_s, "warmup_s": warm_s,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": launches,
+           "ladder_launches_per_step": (launches["lift97"]
+                                        + launches["ilift97"]) / STEPS}
+    emit(res)
+    return res, step, batch
+
+
+def phase_cdf97_train(torch, np, pkg, counts):
+    """The fp32 CDF97 train step at the config's batch, 4 x 256x256, Adam
+    at lr 1e-4, seeded random weights; returns the result and a closure
+    that takes one more step."""
+    cfg = cdf97_config(pkg)
+    batch = train_batch(torch, np, pkg, CDF97_TRAIN_B, TRAIN_P, seed=1).to(DEV)
+    model = cdf97_model(torch, pkg, cfg)
+    step = pkg.state.make_train_step(
+        cfg, model, pkg.state.make_optimizer(cfg, model), DEV)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    lift_n, ilift_n = ladder_launches(cfg, True)
+
+    def run_step():
+        return step(batch, gen, TRAIN_LR, 1.0)
+
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_WARMUP):
+        run_step()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    counts.reset()
+    times, outs = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        outs.append(run_step())
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = counts.read()
+    expect_launches(launches, launches_of(lift=TRAIN_STEPS * lift_n,
+                                          ilift=TRAIN_STEPS * ilift_n),
+                    f"{TRAIN_STEPS} CDF97 train steps")
+    losses = [float(o.loss) for o, _ in outs]
+    aux = [float(a) for _, a in outs]
+    last = [float(v) for v in outs[-1][0]]
+    if not all(math.isfinite(v) for v in losses + aux + last):
+        raise AssertionError(f"non-finite training loss: {losses} {aux}")
+    if not all(torch.isfinite(p).all() for p in model.parameters()):
+        raise AssertionError("non-finite parameter after training")
+    ms = [t * 1e3 for t in times]
+    mean_s = sum(times) / len(times)
+    res = {"phase": "cdf97_train", "config": "cdf97_factorized",
+           "dtype": "float32", "batch": [CDF97_TRAIN_B, 3, TRAIN_P, TRAIN_P],
+           "lr": TRAIN_LR, "warmup_steps": TRAIN_WARMUP, "steps": TRAIN_STEPS,
+           "ms_per_step": mean_s * 1e3, "ms_per_step_min": min(ms),
+           "ms_per_step_all": ms, "steps_per_s": 1.0 / mean_s,
+           "patches_per_s": CDF97_TRAIN_B / mean_s,
+           "mp_per_s": CDF97_TRAIN_B * TRAIN_P * TRAIN_P / 1e6 / mean_s,
+           "loss": losses, "aux": aux, "mse": last[1], "rate1": last[2],
+           "rate2": last[3], "warmup_s": warm_s,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": launches,
+           "ladder_launches_per_step": (launches["lift97"]
+                                        + launches["ilift97"]) / TRAIN_STEPS}
+    emit(res)
+    return res, run_step
+
+
+def reckon_flagship_agent(cfg, n_valid):
+    n_conv = sum(conv_shapes(cfg).values())
+    steps, epochs = AGENT["steps_per_epoch"], AGENT["max_epoch"]
+    return launches_of(conv=epochs * (steps * 2 * n_conv + n_valid * n_conv),
+                       conv_dx=epochs * steps * n_conv)
+
+
+def reckon_cdf97_agent(cfg, n_valid):
+    steps, epochs = CDF97_AGENT["steps_per_epoch"], CDF97_AGENT["max_epoch"]
+    (tl, ts), (el, es) = ladder_launches(cfg, True), ladder_launches(cfg, False)
+    return launches_of(lift=epochs * (steps * tl + n_valid * el),
+                       ilift=epochs * (steps * ts + n_valid * es))
+
+
+def ladder_entry(name, lift, rows, main_res, train_res):
+    """The ``kernels`` line's entry of one ladder kernel: its launches on
+    the CDF97 eval and train paths, and per eval step (its shapes times its
+    launches there) its time, the plain version's, the bound and the conv
+    yardstick's."""
+    mine = [r for r in rows if r["kernel"] == name]
+
+    def per(key, path="eval"):
+        return sum(r[key] * r[f"launches_{path}_step"] for r in mine)
+
+    ev, tr = main_res["launches"][name], train_res["launches"][name]
+    return {"name": name, "route": "cuda",
+            "source": os.path.relpath(lift.SOURCE, HERE),
+            "replaces": "scripts/bench_pallas.py:"
+                        + ("85" if name == "lift97" else "106"),
+            "launches": ev + tr, "launches_eval_path": ev,
+            "launches_train_path": tr,
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "ms": per("ms"), "plain_ms": per("plain_ms"),
+            "bound_ms": per("bound_ms"), "bound_by": "bytes",
+            "library_ms": per("library_ms"),
+            "train_step_ms": per("ms", "train"),
+            "train_step_plain_ms": per("plain_ms", "train"),
+            "train_step_bound_ms": per("bound_ms", "train"),
+            "train_step_library_ms": per("library_ms", "train")}
+
 
 
 def main() -> int:
@@ -697,17 +1177,20 @@ def main() -> int:
     from types import SimpleNamespace
     from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch import (
         cli, config)
+    from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.entropy import (
+        bottleneck)
     from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.models import (
         codec)
     from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.ops import (
-        conv3x3_halo as conv)
+        conv3x3_halo as conv, lift97)
     from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.tools import (
         weights)
     from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.train import (
         checkpoint, data, loss, state)
     pkg = SimpleNamespace(cli=cli, config=config, codec=codec, weights=weights,
                           checkpoint=checkpoint, data=data, loss=loss,
-                          state=state)
+                          state=state, bottleneck=bottleneck)
+    counts = Counts(conv, lift97)
     t_start = time.perf_counter()
 
     card = card_line()
@@ -716,12 +1199,15 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
     t0 = time.perf_counter()
-    conv.build()
-    build_s = time.perf_counter() - t0
-    emit({"phase": "build", "source": os.path.relpath(conv.SOURCE, HERE),
-          "seconds": build_s,
-          "ptxas": [ln.strip() for ln in conv.build_log.splitlines()
-                    if "registers" in ln or "spill" in ln]})
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:  # one nvcc each
+        for job in [pool.submit(m.build) for m in (conv, lift97)]:
+            job.result()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "libraries": [{
+              "source": os.path.relpath(m.SOURCE, HERE),
+              "ptxas": [ln.strip() for ln in m.LIBRARY.build_log.splitlines()
+                        if "registers" in ln or "spill" in ln]}
+              for m in (conv, lift97)]})
 
     cfg = config.flagship_config(dtype="bfloat16")
     with tf32_off(torch):
@@ -740,7 +1226,25 @@ def main() -> int:
     del train_step
     torch.cuda.empty_cache()
     with tf32_off(torch):
-        phase_agent(torch, pkg, conv)
+        phase_agent(torch, pkg, counts, CONFIG, AGENT, reckon_flagship_agent)
+
+    cdf97_cfg = cdf97_config(pkg)
+    with tf32_off(torch):
+        lift_rows = phase_lift97_kernel(torch, F, lift97, cdf97_cfg)
+    with tf32_off(torch, deterministic=True):
+        phase_cdf97_parity(torch, numpy, pkg, counts)
+    cdf_main, step, batch = phase_cdf97_main(torch, numpy, pkg, counts)
+    phase_profile(torch, lambda: step(batch), cdf_main["ms_per_step"],
+                  "cdf97_profile")
+    del step, batch
+    torch.cuda.empty_cache()
+    cdf_train, train_step = phase_cdf97_train(torch, numpy, pkg, counts)
+    phase_profile(torch, train_step, cdf_train["ms_per_step"],
+                  "cdf97_train_profile")
+    del train_step
+    torch.cuda.empty_cache()
+    phase_agent(torch, pkg, counts, CDF97_CONFIG, CDF97_AGENT,
+                reckon_cdf97_agent, "cdf97_agent")
 
     bf16 = [r for r in rows if r["dtype"] == "bfloat16"]
     bwd16 = [r for r in bwd_rows if r["dtype"] == "bfloat16"]
@@ -771,8 +1275,21 @@ def main() -> int:
           "kernel_share_of_step": (per_step("fwd_ms", bwd16)
                                    + per_step("dx_ms", bwd16)) / step_ms,
           "dk_share_of_step": per_step("dk_ms", bwd16) / step_ms})
-    # launches: counted over the eval path (`main`) and the train path
-    # (`train`), each with the counts set to 0 just before it
+    ladders = [ladder_entry(k, lift97, lift_rows, cdf_main, cdf_train)
+               for k in ("lift97", "ilift97")]
+    emit({"phase": "ladder_per_step", "dtype": "float32",
+          "eval_step_ms": cdf_main["ms_per_step"],
+          "train_step_ms": cdf_train["ms_per_step"],
+          **{f"{e['name']}_{k}": e[k] for e in ladders
+             for k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                       "train_step_ms")},
+          "share_of_eval_step": sum(e["ms"] for e in ladders)
+          / cdf_main["ms_per_step"],
+          "share_of_train_step": sum(e["train_step_ms"] for e in ladders)
+          / cdf_train["ms_per_step"]})
+    # launches: counted over the eval path (`main`, `cdf97_main`) and the
+    # train path (`train`, `cdf97_train`), each with the counts set to 0
+    # just before it
     fwd_train = train_res["kernel_launches"] - train_res["dx_launches"]
     emit({"kernels": [{
         "name": "conv3x3_halo", "route": "cuda",
@@ -800,7 +1317,7 @@ def main() -> int:
         "bound_ms": per_step("dx_bound_ms", bwd16),
         "bound_by": "operations" if per_step("ops_ms", bwd16)
         >= per_step("dx_bytes_ms", bwd16) else "bytes",
-        "library_ms": per_step("dx_library_ms", bwd16)}]})
+        "library_ms": per_step("dx_library_ms", bwd16)}, *ladders]})
     emit({"phase": "bounds_of_kernels_to_port",
           "rows": unported_kernel_bounds()})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

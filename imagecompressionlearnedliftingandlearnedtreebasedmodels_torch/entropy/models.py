@@ -6,6 +6,8 @@ self-informations in bits and the quantized subbands fed to the synthesis
 transform (hard-rounded in eval; with additive uniform noise drawn from
 ``generator`` in training).
 
+- ``FactorizedEntropy``: one learned-CDF bottleneck per level plus one for
+  LL (the CDF 9/7 + factorized codec).
 - ``ZTSepSubbands``: zerotree + causal spatial context (the paper's main
   model). Per finer level a parent-context CNN (plc) on the x2-upsampled
   quantized parent details, a 5x5 masked type-A grouped conv (csc) on the
@@ -28,6 +30,7 @@ from ..ops.fast_conv import Conv2d, FastConv3x3
 from ..ops.masked_conv import MaskedConv2d
 from ..ops.math_utils import quantize_dequantize, quantize_noise
 from . import gaussian
+from .bottleneck import EntropyBottleneck
 
 
 def upsample2(x: torch.Tensor) -> torch.Tensor:
@@ -92,6 +95,33 @@ class _MaskedPixelCNN(nn.Module):
             if i < len(self.layers) - 1:
                 x = F.leaky_relu(x, 0.01)
         return x.float()
+
+
+class FactorizedEntropy(nn.Module):
+    """Per-level factorized bottlenecks ``eb_xo_i`` plus ``eb_xe`` for LL."""
+
+    def __init__(self, cfg: Config):
+        super().__init__()
+        c = cfg.clrch
+        self.eb_xo = register_list(self, "eb_xo", [
+            EntropyBottleneck(3 * c) for _ in range(cfg.dwtlevels)])
+        self.eb_xe = EntropyBottleneck(1 * c)
+
+    def forward(self, xe: torch.Tensor, xo_list, training: bool = False,
+                generator=None):
+        """Noise is drawn in the JAX package's order: levels 0..L-1, then
+        LL."""
+        info_xo: List = []
+        xo_qnt: List = []
+        for eb, xo in zip(self.eb_xo, xo_list):
+            q, lik = eb(xo, training, generator)
+            xo_qnt.append(q)
+            info_xo.append(-torch.log2(lik))
+        xe_qnt, lik_xe = self.eb_xe(xe, training, generator)
+        return -torch.log2(lik_xe), info_xo, xe_qnt, xo_qnt
+
+    def aux_loss(self) -> torch.Tensor:
+        return self.eb_xe.aux_loss() + sum(eb.aux_loss() for eb in self.eb_xo)
 
 
 class ZTSepSubbands(nn.Module):
@@ -177,6 +207,8 @@ class ZTSepSubbands(nn.Module):
 
 
 def make_entropy_model(cfg: Config) -> nn.Module:
+    if cfg.entropy_layer == "factorized":
+        return FactorizedEntropy(cfg)
     if cfg.entropy_layer == "conditioned2ZTsepSubbands":
         return ZTSepSubbands(cfg)
     raise NotImplementedError(

@@ -15,6 +15,7 @@ import torch
 from torch import nn
 
 from ..config import Config
+from ..entropy.bottleneck import EntropyBottleneck
 from ..entropy.models import make_entropy_model
 from ..ops.fast_conv import Conv2d, FastConv3x3
 from .transforms import make_transform
@@ -48,7 +49,8 @@ class CodecWrapper(nn.Module):
 
     Conv weights start from flax's ``lecun_normal`` (std 1/sqrt(fan_in))
     drawn from ``generator``; biases start at zero and the GDN and lifting
-    skip parameters at their defined values.
+    skip parameters at their defined values; entropy bottlenecks take
+    flax's init, their biases drawn from ``generator`` too.
     """
 
     def __init__(self, cfg: Config,
@@ -63,6 +65,9 @@ class CodecWrapper(nn.Module):
             self.codecs = nn.ModuleList([LiftingDWTCodec(cfg)
                                          for _ in range(3)])
         reset_conv_weights(self, generator)
+        for m in self.modules():
+            if isinstance(m, EntropyBottleneck):
+                m.reset_parameters(generator)
 
     def forward(self, x: torch.Tensor, training: bool = False,
                 generator=None):

@@ -18,6 +18,34 @@ from ..ops.lifting import LiftStage, lift_level_forward, lift_level_inverse
 from ..ops.subband_ae import make_subband_ae
 
 
+class CDF97Transform(nn.Module):
+    """Fixed 9/7 DWT (:mod:`..ops.dwt97`) + per-subband scaling AEs."""
+
+    def __init__(self, cfg: Config):
+        super().__init__()
+        self.cfg = cfg
+        c = cfg.clrch
+        dt = compute_dtype(cfg)
+        self.yl_ae = make_subband_ae(cfg.autoencoder, 1 * c, dt)
+        self.yh_ae = register_list(self, "yh_ae", [
+            make_subband_ae(cfg.autoencoder, 3 * c, dt)
+            for _ in range(cfg.dwtlevels)])
+
+    def encode(self, x: torch.Tensor):
+        ll, highs = dwt97.dwt97_forward(x, self.cfg.dwtlevels)
+        return self.yl_ae.encode(ll), [ae.encode(h)
+                                       for ae, h in zip(self.yh_ae, highs)]
+
+    def decode(self, xe: torch.Tensor, xo_list) -> torch.Tensor:
+        return dwt97.dwt97_inverse(
+            self.yl_ae.decode(xe),
+            [ae.decode(xo) for ae, xo in zip(self.yh_ae, xo_list)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xe, xo_list = self.encode(x)
+        return self.decode(xe, xo_list)
+
+
 class LearnedLiftingTransform(nn.Module):
     """Learned nonlinear lifting DWT + per-subband scaling AEs.
 
@@ -70,6 +98,8 @@ class LearnedLiftingTransform(nn.Module):
 
 
 def make_transform(cfg: Config) -> nn.Module:
+    if cfg.netType == "CDF97":
+        return CDF97Transform(cfg)
     if cfg.netType == "LiftingBasedNeuralWaveletv4":
         return LearnedLiftingTransform(cfg)
     raise NotImplementedError(f"netType {cfg.netType!r} is not ported yet")

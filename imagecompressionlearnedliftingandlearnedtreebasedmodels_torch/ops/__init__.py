@@ -1,5 +1,6 @@
-"""Transform-path ops: color, GDN, masked convs, lifting, scaling AEs and
-the hand-written 3x3 conv kernel."""
+"""Transform-path ops: color, GDN, masked convs, lifting, the 9/7 DWT,
+scaling AEs, and the hand-written kernels (the 3x3 conv, the 9/7 ladder)
+with their nvcc build."""
 
 from typing import List
 

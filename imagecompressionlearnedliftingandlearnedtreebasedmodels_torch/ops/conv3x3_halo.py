@@ -9,8 +9,7 @@ zero-padded SAME 3x3 conv with no bias whose operands are cast to ``dtype``
 :func:`conv3x3_halo` is a ``torch.autograd.Function`` on both devices:
 
 - forward, on a CUDA tensor: the kernel of ``csrc/conv3x3_halo.cu`` (built
-  with ``nvcc`` for ``sm_90a`` at first use into this package's ``build/``
-  directory and loaded with ``ctypes``), or it raises. It never falls back
+  at first use by :mod:`.nvcc`), or it raises. It never falls back
   to another path. On a CPU tensor: :func:`conv3x3_halo_plain`, a plain
   ``F.conv2d`` in fp32 on operands cast as the kernel casts them.
 - backward, as ``_bwd`` computes it. ``dy`` is rounded to ``dtype``.
@@ -33,72 +32,32 @@ them back to show which path it went through.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import shutil
-import subprocess
-import tempfile
-import threading
 
 import torch
 import torch.nn.functional as F
 
-_HERE = os.path.dirname(os.path.abspath(__file__))
-_PKG = os.path.dirname(_HERE)
-SOURCE = os.path.join(_PKG, "csrc", "conv3x3_halo.cu")
-BUILD_DIR = os.path.join(_PKG, "build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from . import nvcc
+
+SOURCE = os.path.join(nvcc.CSRC, "conv3x3_halo.cu")
 OPERAND_DTYPES = (torch.float32, torch.bfloat16)
 
 launches = 0     # kernel launches; callers reset it to 0 before a counted run
 launches_dx = 0  # those of them that computed a dx
 
-_lib = None
-_lib_lock = threading.Lock()
-build_log = ""  # nvcc's output of the build this process loaded
+
+def _declare(lib: ctypes.CDLL) -> None:
+    fn = lib.conv3x3_halo_fwd
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the conv3x3_halo kernel cannot be "
-                           "built on this machine")
-    return path
+LIBRARY = nvcc.Library(SOURCE, _declare)
 
 
 def build() -> ctypes.CDLL:
     """Compile (once per source version) and load the kernel library."""
-    global _lib, build_log
-    with _lib_lock:
-        if _lib is not None:
-            return _lib
-        with open(SOURCE, "rb") as fh:
-            digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode()
-                                    ).hexdigest()[:12]
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        so = os.path.join(BUILD_DIR, f"libconv3x3_halo_{digest}.so")
-        if not os.path.exists(so):
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            try:
-                res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                                     capture_output=True, text=True)
-                build_log = res.stdout + res.stderr
-                if res.returncode != 0:
-                    raise RuntimeError(
-                        f"nvcc failed to build {SOURCE}:\n{build_log}")
-                os.replace(tmp, so)
-            finally:
-                if os.path.exists(tmp):
-                    os.remove(tmp)
-        lib = ctypes.CDLL(so)
-        fn = lib.conv3x3_halo_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _lib = lib
-        return lib
+    return LIBRARY.load()
 
 
 def conv3x3_halo_plain(x: torch.Tensor, weight: torch.Tensor,

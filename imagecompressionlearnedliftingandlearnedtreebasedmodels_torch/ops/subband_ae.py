@@ -1,5 +1,8 @@
 """Per-subband learned scaling autoencoders (NCHW).
 
+- ``SubbandAutoEncoder``: 4 x (grouped 1x1 conv, hidden in_ch*32, groups
+  in_ch, tanh between), down and up: a learned companding curve per
+  channel (the CDF 9/7 + factorized codec).
 - ``SubbandAutoEncoderBerk``: 3x3 convs of width in_ch*32 / in_ch*64 with
   GDN/IGDN, a spatial context-aware compander (the paper's main configs).
   Its 3x3 convs run through ``conv3x3_halo``.
@@ -12,11 +15,42 @@ import torch
 from torch import nn
 
 from . import register_list
-from .fast_conv import FastConv3x3
+from .fast_conv import Conv2d, FastConv3x3
 from .gdn import GDN
 
 
 HIDDEN = 64  # widest layer of the Berk AE per input channel
+POINTWISE_HIDDEN = 32  # width of the pointwise AE per input channel
+
+
+class SubbandAutoEncoder(nn.Module):
+    """Pointwise grouped compander: each channel through its own 1 -> 32 ->
+    32 -> 32 -> 1 tanh MLP, down and up."""
+
+    def __init__(self, in_ch: int, dtype=None):
+        super().__init__()
+        ic, h = in_ch, POINTWISE_HIDDEN
+        widths = [(ic, ic * h), (ic * h, ic * h), (ic * h, ic * h),
+                  (ic * h, ic)]
+        self.down = register_list(self, "down", [
+            Conv2d(i, o, 1, groups=ic, dtype=dtype) for i, o in widths])
+        self.up = register_list(self, "up", [
+            Conv2d(i, o, 1, groups=ic, dtype=dtype) for i, o in widths])
+
+    @staticmethod
+    def _run(layers, x: torch.Tensor) -> torch.Tensor:
+        for layer in layers[:-1]:
+            x = torch.tanh(layer(x))
+        return layers[-1](x)
+
+    def encode(self, x: torch.Tensor) -> torch.Tensor:
+        return self._run(self.down, x)
+
+    def decode(self, y: torch.Tensor) -> torch.Tensor:
+        return self._run(self.up, y)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.decode(self.encode(x))
 
 
 class SubbandAutoEncoderBerk(nn.Module):
@@ -66,6 +100,8 @@ class IdentityAE(nn.Module):
 
 
 def make_subband_ae(kind: str, in_ch: int, dtype=None) -> nn.Module:
+    if kind == "SubbandAutoEncoder":
+        return SubbandAutoEncoder(in_ch=in_ch, dtype=dtype)
     if kind == "SubbandAutoEncoderBerk":
         return SubbandAutoEncoderBerk(in_ch=in_ch, dtype=dtype)
     if kind == "none":

@@ -6,9 +6,11 @@ of the committed ``results/ckpt_snapshots/*.npz`` (f16 leaves plus an
 ``"['codecs_0']['entropymodel']['plc_0']['Conv_1']['kernel']"``.
 The port names that parameter ``codecs.0.entropymodel.plc_0.Conv_1.weight``.
 
-- conv ``kernel`` (kh, kw, in/G, out) -> ``weight`` (out, in/G, kh, kw);
+- conv ``kernel`` (kh, kw, in/G, out) -> ``weight`` (out, in/G, kh, kw),
+  the only leaves transposed (and they must be 4-D);
 - ``bias``, GDN ``beta``/``gamma`` (reparametrized), lifting ``taps`` and
-  gains ``nh``/``nl`` are copied raw.
+  gains ``nh``/``nl``, and the entropy bottlenecks' ``matrix_i``,
+  ``bias_i``, ``factor_i`` and ``quantiles`` are copied raw.
 
 A gradient tree has the parameter tree's shape, so the same functions carry
 gradients. :func:`flax_params_from_state_dict` is the inverse: a checkpoint
@@ -25,7 +27,8 @@ import torch
 from torch import nn
 
 _SEGMENT = re.compile(r"\['([^']*)'\]")
-_RAW_LEAVES = ("bias", "beta", "gamma", "taps", "nh", "nl")
+_RAW_LEAF = re.compile(
+    r"bias|beta|gamma|taps|nh|nl|quantiles|(matrix|bias|factor)_\d+")
 SKIP_KEYS = ("__iteration__",)
 
 
@@ -64,7 +67,7 @@ def port_name(flax_key: str) -> str:
     *path, leaf = segs
     if leaf == "kernel":
         leaf = "weight"
-    elif leaf not in _RAW_LEAVES:
+    elif not _RAW_LEAF.fullmatch(leaf):
         raise KeyError(f"unknown parameter kind {leaf!r} in {flax_key!r}")
     out = []
     for s in path:
@@ -96,7 +99,7 @@ def flax_key(name: str) -> str:
     *path, leaf = re.sub(r"\bcodecs\.(\d+)", r"codecs_\1", name).split(".")
     if leaf == "weight":
         leaf = "kernel"
-    elif leaf not in _RAW_LEAVES:
+    elif not _RAW_LEAF.fullmatch(leaf):
         raise KeyError(f"unknown parameter kind {leaf!r} in {name!r}")
     return "".join(f"['{s}']" for s in path + [leaf])
 
@@ -110,6 +113,9 @@ def flax_params_from_state_dict(sd: Mapping[str, torch.Tensor]
     for name, t in sd.items():
         t = t.detach().to("cpu", torch.float32)
         if name.rsplit(".", 1)[-1] == "weight":
+            if t.dim() != 4:
+                raise ValueError(f"{name}: conv weight must be 4-D, got "
+                                 f"{tuple(t.shape)}")
             t = t.permute(2, 3, 1, 0)
         out[flax_key(name)] = np.ascontiguousarray(t.numpy())
     return out

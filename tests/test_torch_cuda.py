@@ -1,5 +1,6 @@
-"""The hand-written conv3x3_halo kernel, forward and backward, against its
-plain versions, on the card. Imports no JAX, so it runs where only PyTorch is installed:
+"""The hand-written kernels against their plain versions, on the card:
+conv3x3_halo forward and backward, and the CDF 9/7 ladder's analysis and
+synthesis kernels in all four uses. Imports no JAX, so it runs where only PyTorch is installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -11,7 +12,7 @@ import pytest
 import torch
 
 from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.ops import (
-    conv3x3_halo as conv)
+    conv3x3_halo as conv, dwt97, lift97)
 
 # max |kernel - plain| / max |plain|: fp32 sums of the same exact products
 # in another order
@@ -99,3 +100,67 @@ def test_kernel_backward_matches_plain(card, dtype, b, h, w, cin, cout):
     y = conv.conv3x3_halo(x.detach(), wt, dtype)
     torch.autograd.grad(y, wt, dy)
     assert conv.launches == 1
+
+
+# the ladder: max |kernel - plain| / max |plain|; the same fp32 expressions,
+# which the kernel may contract into FMAs
+LADDER_TOL = 1e-5
+LADDER_SHAPES = [
+    (2, 3, 64, 96),     # whole tiles along W, one tile along H
+    (1, 2, 130, 34),    # ragged pair tiles, inner < one column tile
+    (3, 1, 2, 6),       # one pair along H: every neighbour wraps to itself
+    (1, 3, 300, 258),   # several pair tiles both ways
+]
+USES = [("F", lift97.FORWARD), ("I", lift97.INVERSE),
+        ("F_T", lift97.FORWARD_T), ("I_T", lift97.INVERSE_T)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("shape", LADDER_SHAPES)
+def test_ladder_kernels_match_plain(card, shape, dim):
+    rng = np.random.RandomState(sum(shape) + dim)
+    x = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(card)
+    lo, hi = lift97.analysis_plain(x, dim)
+    for name, ladder in USES:
+        lift97.launches_lift = lift97.launches_ilift = 0
+        if ladder in (lift97.FORWARD, lift97.INVERSE_T):
+            got = lift97.launch_analysis(x, dim, ladder)
+            want = lift97.analysis_plain(x, dim, ladder)
+        else:
+            got = (lift97.launch_synthesis(lo, hi, dim, ladder),)
+            want = (lift97.synthesis_plain(lo, hi, dim, ladder),)
+        torch.cuda.synchronize()
+        assert (lift97.launches_lift, lift97.launches_ilift) == (
+            (1, 0) if len(got) == 2 else (0, 1)), name
+        for g, w in zip(got, want):
+            err = (g - w).abs().max().item() / w.abs().max().item()
+            assert err < LADDER_TOL, (name, err)
+
+
+@pytest.mark.cuda
+def test_ladder_on_the_card_never_takes_the_plain_path(card, monkeypatch):
+    """dwt97 forward and inverse, and their gradients, on a CUDA tensor:
+    three launches a level each way, the backward through the kernels, and
+    the plain ladder never called."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain ladder")
+
+    monkeypatch.setattr(lift97, "analysis_plain", refuse)
+    monkeypatch.setattr(lift97, "synthesis_plain", refuse)
+    x = torch.rand(2, 3, 32, 48, device=card, requires_grad=True)
+    lift97.launches_lift = lift97.launches_ilift = 0
+    ll, highs = dwt97.dwt97_forward(x, 3)
+    y = dwt97.dwt97_inverse(ll, highs)
+    assert (lift97.launches_lift, lift97.launches_ilift) == (9, 9)
+    y.backward(torch.ones_like(y))
+    torch.cuda.synchronize()
+    # the inverse's backward runs the analysis kernel, the forward's the
+    # synthesis kernel
+    assert (lift97.launches_lift, lift97.launches_ilift) == (18, 18)
+    assert (y - x).abs().max().item() < 1e-5
+    assert (x.grad - 1).abs().max().item() < 1e-5   # the identity's gradient
+    with pytest.raises(ValueError, match="even"):
+        dwt97.lift97_1d(torch.zeros(1, 1, 6, 5, device=card), 3)
+    with pytest.raises(ValueError, match="lifted length"):
+        lift97.launch_analysis(torch.zeros(1, 1, 6, 5, device=card), 3)

@@ -1,7 +1,8 @@
 """The port stands alone: no source of it (nor ``chip_smoke.py``) imports
 JAX, flax, optax or the JAX package; it imports with those blocked; the
-flagship snapshot fills every port parameter; and its entry points (eval
-step, train step, agent, CLI) do not fall back to the CPU on their own."""
+flagship snapshot fills every port parameter; the CDF 9/7 + factorized
+config builds at full width; and its entry points (eval step, train step,
+agent, CLI) do not fall back to the CPU on their own."""
 
 import ast
 import os
@@ -30,6 +31,7 @@ BANNED = ("jax", "jaxlib", "flax", "optax",
           "imagecompressionlearnedliftingandlearnedtreebasedmodels_tpu")
 SNAPSHOT = os.path.join(ROOT, "results", "ckpt_snapshots",
                         "flagship_lam2000.npz")
+CDF97 = os.path.join(ROOT, "configs", "cdf97_factorized.json")
 
 
 def _sources():
@@ -75,6 +77,12 @@ print("ok")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+def test_kernel_sources_are_in_the_package():
+    csrc = os.path.join(ROOT, PORT, "csrc")
+    assert sorted(f for f in os.listdir(csrc) if f.endswith(".cu")) == [
+        "conv3x3_halo.cu", "lift97.cu"]
 
 
 def test_snapshot_fills_every_parameter():
@@ -136,3 +144,25 @@ def test_training_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch,
     assert torch.isfinite(out.loss) and out.loss.device.type == "cpu"
     assert loop.LiftingDWTAgent(cfg, device="cpu").device.type == "cpu"
     assert cli.main(["--device", "cpu", "c.json"]) == 0
+
+
+def test_cdf97_config_builds_and_needs_cuda_unless_cpu_is_asked(monkeypatch):
+    """``configs/cdf97_factorized.json`` at full width: one joint-RGB codec,
+    4 levels, pointwise AEs of width 32, bottlenecks with filters (3,3,3,3):
+    155 tensors, 174,681 parameters, every one named as in the flax tree."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = config.get_config_from_json(CDF97)
+    model = CodecWrapper(cfg, generator=torch.Generator().manual_seed(0))
+    sd = model.state_dict()
+    assert len(sd) == 155 and sum(t.numel() for t in sd.values()) == 174681
+    assert all(n.startswith("codec.") for n in sd)
+    flat = weights.flax_params_from_state_dict(sd)
+    assert flat["['codec']['entropymodel']['eb_xo_3']['matrix_4']"].shape \
+        == (9, 1, 3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        state.make_eval_step(cfg, model)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        state.make_train_step(cfg, model, state.make_optimizer(cfg, model))
+    out, xhat = state.make_eval_step(cfg, model, device="cpu")(
+        torch.rand(1, 3, 32, 48))
+    assert torch.isfinite(out.loss) and xhat.shape == (1, 3, 32, 48)

@@ -207,4 +207,4 @@ def test_identity_ae_round_trip_is_exact():
 def test_make_transform_rejects_unported():
     _, pcfg = _cfgs()
     with pytest.raises(NotImplementedError):
-        ptr.make_transform(dataclasses.replace(pcfg, netType="CDF97"))
+        ptr.make_transform(dataclasses.replace(pcfg, netType="BasicWavelet"))
