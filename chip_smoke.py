@@ -8,51 +8,73 @@ Each phase prints one JSON line; any fault ends the run with a non-zero
 exit code and no result line:
 
 1. card    the card's name and power limit (nvidia-smi) and torch's name;
-2. build   ``csrc/conv3x3_halo.cu`` and ``csrc/lift97.cu`` compiled with
-           nvcc for sm_90a, both at once;
-3. kernel  the hand-written conv3x3_halo kernel against its plain PyTorch
-           version at every distinct eval-path shape (B=8, 512x768) in bf16
-           and fp32 operands, with its time, the plain version's, cuDNN's
-           (``F.conv2d``, the yardstick, never used by the port) and the
-           card's bound for the same work;
-4. kernel_bwd  the conv Function at every distinct training shape (B=8,
-           256x256), bf16 and fp32: its forward against the plain version,
-           and its backward, dx (the same kernel on the flipped, swapped
-           weight) and dk (one matrix product), against
-           ``conv3x3_halo_bwd_plain``, with the times of the dx
-           kernel, the dk product and the forward kernel, the bound, and
-           cuDNN's time for the same two gradients
+2. build   ``csrc/conv3x3_halo.cu``, ``csrc/conv_v2.cu`` and ``csrc/lift97.cu``
+           compiled with nvcc for sm_90a and the host C++ coding libraries
+           (``csrc/rans.cpp``, ``csrc/wavefront_ctx.cpp``) with g++, all at
+           once, with the flags each was built with;
+3. kernel  the fp32 conv kernel (conv3x3_halo, CUDA cores) launched directly
+           against its plain PyTorch version at every distinct eval-path
+           shape (B=8, 512x768) in bf16 and fp32 operands, with its time, the
+           plain version's, cuDNN's (``F.conv2d``, the yardstick, never used
+           by the port) and the card's bound for the same work;
+4. kernel_bwd  the same kernel's dx (on the flipped, swapped weight) and the
+           dk product at every distinct training shape (B=8, 256x256), bf16
+           and fp32, against ``conv3x3_halo_bwd_plain``, by direct launches,
+           with their times, the bound and cuDNN's for the same gradients
            (``torch.nn.grad.conv2d_input`` / ``conv2d_weight``);
-5. parity  the flagship codec in fp32 on one 256x256 image, on the card and
+5. conv_v2_kernel  the bf16 tensor-core conv (conv_v2) against
+           ``conv_v2_plain``: forward at every eval-path shape, the conv
+           Function's forward, dx and dk in bf16 at every training shape, and
+           forward at ``scripts/bench_pallas_v2.py``'s three shapes; per
+           shape its time, TFLOP/s, the bound, the plain version's time,
+           cuDNN's bf16 ``F.conv2d`` and kernel 1's bf16 time;
+6. parity  the flagship codec in fp32 on one 256x256 image, on the card and
            on the CPU (plain versions), with the committed lambda=2000
            weights: loss, mse, rates and xhat must agree;
-6. train_parity  one fp32 train step of the flagship (lambda=2000 weights,
+7. train_parity  one fp32 train step of the flagship (lambda=2000 weights,
            a seeded batch of two 128x128 patches, noise from a CPU
            generator with one seed) on the card and on the CPU: loss, mse,
            rates and every gradient tensor must agree (cuDNN made
            deterministic, so the reading repeats);
-7. main    the flagship codec in bf16 at full width and size (B=8 seeded
+8. main    the flagship codec in bf16 at full width and size (B=8 seeded
            512x768 images, lambda=2000 weights): bpp, PSNR, MP/s, ms per
-           eval step, and the kernel's launches per step; checked against
-           one fp32 step on the same batch;
-8. profile one more eval step under torch.profiler: device busy time and
+           eval step, and conv_v2's launches per step (kernel 1's: none);
+           checked against one fp32 step on the same batch;
+9. profile one more eval step under torch.profiler: device busy time and
            the kernels that take most of it;
-9. train   the flagship in bf16, B=8 patches of 256x256, from the
+10. train  the flagship in bf16, B=8 patches of 256x256, from the
            lambda=2000 weights, Adam at lr 1e-4: 2 warm-up and 10 timed
-           train steps (ms/step, patches/s, MP/s, every loss, kernel
+           train steps (ms/step, patches/s, MP/s, every loss, conv_v2
            launches per step against the number reckoned from the model,
            peak memory), then one more step under torch.profiler;
-10. agent  the CLI on a temporary copy of
+11. agent  the CLI on a temporary copy of
            ``configs/flagship_lifting_ztsep.json`` (batch 2, patch 128,
            fp32, lambda 2000, 4 steps an epoch, 2 epochs): train, validate,
            save; then ``--resume-training`` restores epoch, iteration, lr
-           and the Adam moments and takes one more epoch.
+           and the Adam moments and takes one more epoch; then
+           ``agent_test``: the CLI in ``mode: test`` on that checkpoint, a
+           real bitstream of each synthetic test image;
+12. bitstream  the real bitstream (``coding/codec_coder.py``: transforms on
+           the card, entropy coding in host C++) of the flagship in fp32
+           with the lambda=2000 weights over the 19 dead-leaves images of
+           the held-out set (``synthetic_natural_images(19, 256,
+           seed=9999)``), one at a time: every plane decodes to the
+           encoder's writeback bit for bit, and each image's bpp and PSNR
+           are held to the JAX package's on the same snapshot and images
+           (``results/port_bitstream_targets.json``); the means beside
+           ``results/rd_flagship.json``'s; seconds per image split into the
+           transforms on the card and the host's coding;
+13. bitstream_bf16  the same 19 images with bf16 operands (conv_v2 in the
+           analysis and synthesis): lossless, each image close to the fp32
+           pass, 120 conv_v2 launches an image (60 in the analysis, 60 in
+           the synthesis); then two Kodak-size images (512x768) timed:
+           s/image, coded MP/s, card and host.
 
 Then the CDF 9/7 + factorized codec (``configs/cdf97_factorized.json`` at
 full width: joint RGB, 4 levels, pointwise AEs, factorized bottlenecks,
 fp32, random weights from the port's seeded init):
 
-11. lift97_kernel  the ladder kernels in all four uses (analysis: the
+14. lift97_kernel  the ladder kernels in all four uses (analysis: the
            forward F and the adjoint of the inverse; synthesis: the inverse
            I and the adjoint of the forward) against their plain versions
            along H and W, at every distinct shape of the CDF97 eval path
@@ -62,21 +84,24 @@ fp32, random weights from the port's seeded init):
            yardstick the same transform as one strided cuDNN conv (or
            transposed conv) with the 9/7 filters on a circularly padded
            input, never used by the port;
-12. cdf97_parity  the eval step card vs CPU on one 256x256 image, then one
+15. cdf97_parity  the eval step card vs CPU on one 256x256 image, then one
            train step card vs CPU with the training noise pinned to zero;
-13. cdf97_main  the eval step at B=8 512x768 (ms, MP/s, bpp, PSNR, the
+16. cdf97_main  the eval step at B=8 512x768 (ms, MP/s, bpp, PSNR, the
            ladder's launches against 24 a step), then one step profiled;
-14. cdf97_train  the train step at the config's batch, 4 x 256x256, Adam at
+17. cdf97_train  the train step at the config's batch, 4 x 256x256, Adam at
            lr 1e-4: 2 warm-up and 10 timed steps (launches against 36 a
            step), then one step profiled;
-15. cdf97_agent  the CLI on the config cut to 2 steps an epoch and 2
-           epochs, then ``--resume-training``.
+18. cdf97_bitstream  the real bitstream of four 256x256 images: lossless,
+           the real bpp within 3 % of the eval step's likelihood bpp, 24
+           ladder launches an image;
+19. cdf97_agent  the CLI on the config cut to 2 steps an epoch and 2
+           epochs, then ``--resume-training``, then ``mode: test``.
 
 Then a ``kernels`` line, the card's name and power limit again, and the
 last line ``{"ok": true, "device": {...}}``.
 
-TF32 is off (cuDNN and matmul) for every fp32 comparison: phases 3 to 6,
-the fp32 step of phase 7, and phases 11 and 12.
+TF32 is off (cuDNN and matmul) for every fp32 comparison and fp32 run:
+phases 3 to 7, the fp32 step of phase 8, phases 11 and 12, 14, 15 and 18.
 """
 
 from __future__ import annotations
@@ -110,6 +135,14 @@ CDF97_SEED = 0                   # the port's init of the CDF97 codec
 CDF97_TRAIN_B = 4                # the config's batch_size and patch_size
 CDF97_AGENT = dict(multi_agent=False, steps_per_epoch=2, max_epoch=2)
 BENCH_PALLAS_SHAPES = ((8, 3, 512, 768), (1, 3, 2048, 2048))  # NCHW
+# scripts/bench_pallas_v2.py's SHAPES: NHWC input, Cout
+BENCH_PALLAS_V2_SHAPES = (((8, 256, 384, 96), 192), ((8, 256, 384, 192), 96),
+                          ((8, 128, 192, 96), 192))
+TARGETS = os.path.join(HERE, "results", "port_bitstream_targets.json")
+RD_FLAGSHIP = os.path.join(HERE, "results", "rd_flagship.json")
+BITSTREAM_IMAGES = (19, 256, 9999)  # synthetic_natural_images(n, size, seed)
+KODAK_IMAGES = 2                 # bitstream_bf16's timed 512x768 images
+CDF97_BITSTREAM_IMAGES = 4       # 256x256
 DEV = "cuda"
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, fp32 CUDA
 # cores, HBM3.
@@ -150,6 +183,17 @@ XHAT_MEAN_TOL = 1e-5   # mean |xhat_card - xhat_cpu|
 XHAT_MAX_TOL = 5e-2    # max: one rounding that flips moves a few pixels
 BF16_BPP_RTOL = 5e-2   # bf16 vs fp32 step on the same batch
 BF16_PSNR_TOL = 0.5    # dB
+# The real bitstream in fp32 against the JAX package's on the same snapshot
+# and images: the same C++ coding, subbands from another conv implementation
+# (a symbol flips where a value sits within an ulp of a rounding boundary)
+TARGET_BPP_RTOL = 5e-3
+TARGET_PSNR_TOL = 0.02  # dB
+# bf16 operands against the fp32 pass, image by image
+BITSTREAM_BF16_BPP_RTOL = 2e-2
+BITSTREAM_BF16_PSNR_TOL = 0.2  # dB
+# CDF97: the real rate against the eval step's likelihood rate (rANS
+# overhead and the escape coding past the tables' range)
+CDF97_REAL_BPP_RTOL = 3e-2
 
 
 def emit(obj) -> None:
@@ -172,23 +216,36 @@ def expect_launches(got, want, what) -> None:
 class Counts:
     """The kernel modules' launch counters, set to 0 and read together."""
 
-    def __init__(self, conv, lift):
-        self.conv, self.lift = conv, lift
+    def __init__(self, conv, v2, lift):
+        self.conv, self.v2, self.lift = conv, v2, lift
 
     def reset(self):
         self.conv.launches = self.conv.launches_dx = 0
+        self.v2.launches = self.v2.launches_dx = 0
         self.lift.launches_lift = self.lift.launches_ilift = 0
 
     def read(self):
         return {"conv3x3_halo": self.conv.launches,
                 "conv3x3_halo_dx": self.conv.launches_dx,
+                "conv_v2": self.v2.launches,
+                "conv_v2_dx": self.v2.launches_dx,
                 "lift97": self.lift.launches_lift,
                 "ilift97": self.lift.launches_ilift}
 
 
-def launches_of(conv=0, conv_dx=0, lift=0, ilift=0):
+def launches_of(conv=0, conv_dx=0, v2=0, v2_dx=0, lift=0, ilift=0):
     return {"conv3x3_halo": conv, "conv3x3_halo_dx": conv_dx,
+            "conv_v2": v2, "conv_v2_dx": v2_dx,
             "lift97": lift, "ilift97": ilift}
+
+
+def coding_conv_launches(cfg):
+    """3x3 conv launches of one image's analysis, and as many of its
+    synthesis, in the real bitstream: four convs of each scaling AE (the
+    down stacks, or the up stacks), one AE a level and one for LL, on every
+    plane; the context convs run in host C++."""
+    planes = 3 if cfg.clrch == 1 else 1
+    return 4 * (cfg.dwtlevels + 1) * planes
 
 
 def ladder_launches(cfg, train: bool):
@@ -239,27 +296,6 @@ def conv_shapes(cfg, size=None):
     return counts
 
 
-def unported_kernel_bounds():
-    """The card's bound for the TPU kernel still to be ported, the
-    single-product conv of ``scripts/bench_pallas_v2.py``, at the shapes of
-    the flagship's wide 3x3 convs: reckoned from the shapes alone (no kernel
-    exists to time), the forward kernel's operations on bf16 operands."""
-    rows = []
-    for (b, h, w, cin), cout in (((8, 256, 384, 96), 192),
-                                 ((8, 256, 384, 192), 96),
-                                 ((8, 128, 192, 96), 192)):
-        n = b * h * w
-        t_ops = 2.0 * 9 * cin * cout * n / PEAK_FLOPS["bfloat16"] * 1e3
-        t_bytes = ((n * cin + 9 * cin * cout) * 2 + n * cout * 4) \
-            / PEAK_BYTES * 1e3
-        rows.append({"kernel": "conv_v2", "shape": [b, h, w, cin],
-                     "cout": cout, "dtype": "bfloat16",
-                     "bound_ms": max(t_ops, t_bytes),
-                     "bound_by": "operations" if t_ops >= t_bytes
-                     else "bytes"})
-    return rows
-
-
 @contextlib.contextmanager
 def tf32_off(torch, deterministic=False):
     """fp32 convs and matmuls in full fp32 (cuDNN's default is TF32);
@@ -304,7 +340,8 @@ def time_ms(fn, torch, min_ms=100.0, max_reps=50):
 
 
 def phase_kernel(torch, F, conv, cfg):
-    """Kernel vs plain at every main-path shape; returns per-shape rows."""
+    """Kernel 1 (launched directly) vs plain at every eval-path shape;
+    returns per-shape rows."""
     rows = []
     gen = torch.Generator(device=DEV).manual_seed(0)
     for (h, w, cin, cout), per_step in sorted(conv_shapes(cfg).items()):
@@ -315,7 +352,11 @@ def phase_kernel(torch, F, conv, cfg):
         for name, dt in (("bfloat16", torch.bfloat16),
                          ("float32", torch.float32)):
             with torch.no_grad():
-                got = conv.conv3x3_halo(x, wt, dt)
+                # the kernel alone, on operands already cast and laid out
+                xl = x.to(dt).contiguous(memory_format=torch.channels_last)
+                w9 = conv.tap_major(wt, dt)
+                wl = wt.to(dt).contiguous(memory_format=torch.channels_last)
+                got = conv.launch_kernel(xl, w9)
                 want = conv.conv3x3_halo_plain(x, wt, dt)
                 torch.cuda.synchronize()
                 abs_err = (got - want).abs().max().item()
@@ -325,11 +366,6 @@ def phase_kernel(torch, F, conv, cfg):
                         f"conv3x3_halo {name} {(B, cin, h, w)}->{cout}: "
                         f"error {rel_err:.3e} > {KERNEL_TOL}")
                 del got, want
-                # the kernel alone, on operands already cast and laid out
-                xl = x.to(dt).contiguous(memory_format=torch.channels_last)
-                w9 = wt.to(dt).permute(2, 3, 1, 0).reshape(9, cin, cout
-                                                           ).contiguous()
-                wl = wt.to(dt).contiguous(memory_format=torch.channels_last)
                 ms = time_ms(lambda: conv.launch_kernel(xl, w9), torch)
                 plain_ms = time_ms(
                     lambda: conv.conv3x3_halo_plain(x, wt, dt), torch)
@@ -357,8 +393,9 @@ def phase_kernel(torch, F, conv, cfg):
 
 
 def phase_kernel_bwd(torch, conv, cfg):
-    """The conv Function's forward, dx and dk against the plain versions
-    at every training shape; returns per-shape rows."""
+    """Kernel 1's forward and dx (launched directly) and the dk product
+    against the plain versions at every training shape; returns per-shape
+    rows."""
     rows = []
     gen = torch.Generator(device=DEV).manual_seed(1)
     b = TRAIN_B
@@ -370,21 +407,26 @@ def phase_kernel_bwd(torch, conv, cfg):
         dy = torch.randn(b, cout, h, w, device=DEV, generator=gen)
         for name, dt in (("bfloat16", torch.bfloat16),
                          ("float32", torch.float32)):
-            xg, wg = x.clone().requires_grad_(True), wt.clone().requires_grad_(True)
-            conv.launches = conv.launches_dx = 0
-            y = conv.conv3x3_halo(xg, wg, dt)
-            y.backward(dy)
-            torch.cuda.synchronize()
-            expect_launches((conv.launches, conv.launches_dx), (2, 1),
-                            "one forward and backward")
             with torch.no_grad():
+                cl = torch.channels_last
+                xl = x.to(dt).contiguous(memory_format=cl)
+                dyl = dy.to(dt).contiguous(memory_format=cl)
+                w9 = conv.tap_major(wt, dt)
+                w9_dx = conv.tap_major(conv.flip_swap(wt), dt)
+                wl = wt.to(dt).contiguous(memory_format=cl)
+                conv.launches = 0
+                y = conv.launch_kernel(xl, w9)
+                dx = conv.launch_kernel(dyl, w9_dx)
+                dk = conv.dk_product(xl, dyl)
+                torch.cuda.synchronize()
+                expect_launches(conv.launches, 2, "one forward and one dx")
                 want_y = conv.conv3x3_halo_plain(x, wt, dt)
                 want_dx, want_dk = conv.conv3x3_halo_bwd_plain(x, wt, dy, dt)
                 fwd_abs = (y - want_y).abs().max().item()
                 fwd_rel = rel_err(y, want_y)
-                dx_abs = (xg.grad - want_dx).abs().max().item()
-                dx_rel = rel_err(xg.grad, want_dx)
-                dk_rel = rel_err(wg.grad, want_dk)
+                dx_abs = (dx - want_dx).abs().max().item()
+                dx_rel = rel_err(dx, want_dx)
+                dk_rel = rel_err(dk, want_dk)
                 if not fwd_rel <= KERNEL_TOL or not dx_rel <= KERNEL_TOL \
                         or not dk_rel <= DK_TOL[name]:
                     raise AssertionError(
@@ -392,14 +434,7 @@ def phase_kernel_bwd(torch, conv, cfg):
                         f"forward error {fwd_rel:.3e}, dx error {dx_rel:.3e} "
                         f"(limit {KERNEL_TOL}), dk error {dk_rel:.3e} "
                         f"(limit {DK_TOL[name]})")
-                del y, xg, wg, want_y, want_dx, want_dk
-                # each piece alone, on operands already cast and laid out
-                cl = torch.channels_last
-                xl = x.to(dt).contiguous(memory_format=cl)
-                dyl = dy.to(dt).contiguous(memory_format=cl)
-                w9 = conv.tap_major(wt, dt)
-                w9_dx = conv.tap_major(conv.flip_swap(wt), dt)
-                wl = wt.to(dt).contiguous(memory_format=cl)
+                del y, dx, dk, want_y, want_dx, want_dk
                 t = lambda fn: time_ms(fn, torch, min_ms=50.0)  # noqa: E731
                 dx_ms = t(lambda: conv.launch_kernel(dyl, w9_dx))
                 dk_ms = t(lambda: conv.dk_product(xl, dyl))
@@ -439,6 +474,139 @@ def phase_kernel_bwd(torch, conv, cfg):
     return rows
 
 
+def conv_bound(n, cin, cout):
+    """(bound ms, ops ms, bytes ms) of one SAME 3x3 conv over ``n`` pixels
+    with bf16 operands and an fp32 output: input and weight read once,
+    output written once."""
+    t_ops = 2.0 * 9 * cin * cout * n / PEAK_FLOPS["bfloat16"] * 1e3
+    t_bytes = ((n * cin + 9 * cin * cout) * 2 + n * cout * 4) \
+        / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), t_ops, t_bytes
+
+
+def phase_conv_v2_kernel(torch, F, conv, v2, cfg, k1_rows, k1_bwd_rows):
+    """Kernel 4 (conv_v2) against ``conv_v2_plain``: forward at every
+    eval-path shape (B=8 512x768), the bf16 conv Function's forward, dx and
+    dk at every training shape (B=8 256x256), forward at
+    ``bench_pallas_v2.py``'s shapes; returns per-shape rows. Kernel 1's
+    bf16 times at the same shapes come from ``k1_rows``/``k1_bwd_rows``
+    (the same call)."""
+    rows = []
+    cl = torch.channels_last
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=DEV).manual_seed(4)
+    k1 = {(tuple(r["x"]), r["cout"]): r for r in k1_rows
+          if r["dtype"] == "bfloat16"}
+    k1_bwd = {(tuple(r["x"]), r["cout"]): r for r in k1_bwd_rows
+              if r["dtype"] == "bfloat16"}
+
+    def forward_row(path, b, cin, h, w, cout, per_step):
+        x = torch.randn(b, cin, h, w, device=DEV, generator=gen)
+        wt = torch.randn(cout, cin, 3, 3, device=DEV, generator=gen
+                         ) / (3 * cin ** 0.5)
+        with torch.no_grad():
+            xl = x.to(bf16).contiguous(memory_format=cl)
+            w9 = conv.tap_major(wt, bf16)
+            wl = wt.to(bf16).contiguous(memory_format=cl)
+            got = v2.launch_kernel(xl, w9)
+            want = v2.conv_v2_plain(x, wt)
+            torch.cuda.synchronize()
+            abs_err = (got - want).abs().max().item()
+            rel = abs_err / want.abs().max().item()
+            del got, want
+            if not rel <= KERNEL_TOL:
+                raise AssertionError(f"conv_v2 {(b, cin, h, w)}->{cout}: "
+                                     f"error {rel:.3e} > {KERNEL_TOL}")
+            ms = time_ms(lambda: v2.launch_kernel(xl, w9), torch)
+            plain_ms = time_ms(lambda: v2.conv_v2_plain(x, wt), torch)
+            lib_ms = time_ms(lambda: F.conv2d(xl, wl, padding=1), torch)
+            key = ((b, cin, h, w), cout)
+            k1_ms = k1[key]["ms"] if key in k1 else time_ms(
+                lambda: conv.launch_kernel(xl, w9), torch)
+        bound, t_ops, t_bytes = conv_bound(b * h * w, cin, cout)
+        flops = 2.0 * 9 * cin * cout * b * h * w
+        row = {"phase": "conv_v2_kernel", "path": path, "x": [b, cin, h, w],
+               "cout": cout, "launches_per_step": per_step,
+               "max_abs_err": abs_err, "max_rel_err": rel, "ms": ms,
+               "tflops": flops / ms / 1e9, "plain_ms": plain_ms,
+               "library_ms": lib_ms, "conv3x3_halo_bf16_ms": k1_ms,
+               "bound_ms": bound, "ops_ms": t_ops, "bytes_ms": t_bytes,
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "gflop": flops / 1e9}
+        emit(row)
+        rows.append(row)
+
+    for (h, w, cin, cout), n in sorted(conv_shapes(cfg).items()):
+        forward_row("eval", B, cin, h, w, cout, n)
+    for (b, h, w, cin), cout in BENCH_PALLAS_V2_SHAPES:
+        forward_row("bench_pallas_v2", b, cin, h, w, cout, 0)
+
+    b = TRAIN_B
+    for (h, w, cin, cout), n in sorted(
+            conv_shapes(cfg, (TRAIN_P, TRAIN_P)).items()):
+        x = torch.randn(b, cin, h, w, device=DEV, generator=gen)
+        wt = torch.randn(cout, cin, 3, 3, device=DEV, generator=gen
+                         ) / (3 * cin ** 0.5)
+        dy = torch.randn(b, cout, h, w, device=DEV, generator=gen)
+        xg = x.clone().requires_grad_(True)
+        wg = wt.clone().requires_grad_(True)
+        conv.launches = v2.launches = v2.launches_dx = 0
+        y = conv.conv3x3_halo(xg, wg, bf16)
+        y.backward(dy)
+        torch.cuda.synchronize()
+        expect_launches((v2.launches, v2.launches_dx, conv.launches),
+                        (2, 1, 0), "one bf16 forward and backward "
+                        "(conv_v2, its dx, conv3x3_halo)")
+        with torch.no_grad():
+            want_y = v2.conv_v2_plain(x, wt)
+            want_dx, want_dk = conv.conv3x3_halo_bwd_plain(x, wt, dy, bf16)
+            fwd_abs = (y - want_y).abs().max().item()
+            fwd_rel = rel_err(y, want_y)
+            dx_abs = (xg.grad - want_dx).abs().max().item()
+            dx_rel = rel_err(xg.grad, want_dx)
+            dk_rel = rel_err(wg.grad, want_dk)
+            if not fwd_rel <= KERNEL_TOL or not dx_rel <= KERNEL_TOL \
+                    or not dk_rel <= DK_TOL["bfloat16"]:
+                raise AssertionError(
+                    f"conv_v2 train {(b, cin, h, w)}->{cout}: forward error "
+                    f"{fwd_rel:.3e}, dx error {dx_rel:.3e}, dk error "
+                    f"{dk_rel:.3e}")
+            del y, xg, wg, want_y, want_dx, want_dk
+            dyl = dy.to(bf16).contiguous(memory_format=cl)
+            xl = x.to(bf16).contiguous(memory_format=cl)
+            w9 = conv.tap_major(wt, bf16)
+            w9_dx = conv.tap_major(conv.flip_swap(wt), bf16)
+            wl = wt.to(bf16).contiguous(memory_format=cl)
+            t = lambda fn: time_ms(fn, torch, min_ms=50.0)  # noqa: E731
+            dx_ms = t(lambda: v2.launch_kernel(dyl, w9_dx))
+            fwd_ms = t(lambda: v2.launch_kernel(xl, w9))
+            plain_ms = t(lambda: v2.conv_v2_plain(dy, conv.flip_swap(wt)))
+            lib_dx_ms = t(lambda: torch.nn.grad.conv2d_input(
+                xl.shape, wl, dyl, padding=1))
+            del xl, dyl, w9, w9_dx, wl
+        n_px = b * h * w
+        dx_bound, t_ops, dx_bytes = conv_bound(n_px, cout, cin)
+        fwd_bound = conv_bound(n_px, cin, cout)[0]
+        k1r = k1_bwd[((b, cin, h, w), cout)]
+        row = {"phase": "conv_v2_kernel", "path": "train", "x": [b, cin, h, w],
+               "cout": cout, "launches_per_step": n,
+               "fwd_max_abs_err": fwd_abs, "fwd_max_rel_err": fwd_rel,
+               "dx_max_abs_err": dx_abs, "dx_max_rel_err": dx_rel,
+               "dk_max_rel_err": dk_rel, "fwd_ms": fwd_ms, "dx_ms": dx_ms,
+               "dx_plain_ms": plain_ms, "dx_library_ms": lib_dx_ms,
+               "conv3x3_halo_bf16_fwd_ms": k1r["fwd_ms"],
+               "conv3x3_halo_bf16_dx_ms": k1r["dx_ms"],
+               "fwd_bound_ms": fwd_bound, "dx_bound_ms": dx_bound,
+               "ops_ms": t_ops, "dx_bytes_ms": dx_bytes,
+               "gflop": 2.0 * 9 * cin * cout * n_px / 1e9,
+               "dx_tflops": 2.0 * 9 * cin * cout * n_px / dx_ms / 1e9}
+        emit(row)
+        rows.append(row)
+        del x, wt, dy
+    torch.cuda.empty_cache()
+    return rows
+
+
 def load_model(cfg, pkg):
     model = pkg.codec.CodecWrapper(cfg)
     pkg.weights.load_flax_params(model, pkg.weights.load_npz(SNAPSHOT))
@@ -472,6 +640,7 @@ def phase_parity(torch, pkg, conv):
             or not out["xhat_max_abs_err"] <= XHAT_MAX_TOL:
         raise AssertionError(f"card and CPU disagree: {bad or 'xhat'}")
     expect_launches(launches, sum(conv_shapes(cfg).values()), "parity run")
+    return launches
 
 
 def train_batch(torch, np, pkg, n, size, seed):
@@ -522,10 +691,12 @@ def phase_train_parity(torch, np, pkg, conv):
     n_conv = sum(conv_shapes(cfg).values())
     expect_launches((cpu_launches, launches, dx), (0, 2 * n_conv, n_conv),
                     "train parity (cpu, card, card dx)")
+    return launches, dx
 
 
-def phase_main(torch, np, pkg, conv):
-    """bf16 flagship at B=8 512x768 with the lambda=2000 weights."""
+def phase_main(torch, np, pkg, counts):
+    """bf16 flagship at B=8 512x768 with the lambda=2000 weights: every
+    dense 3x3 conv through conv_v2, none through conv3x3_halo."""
     cfg = pkg.config.flagship_config(dtype="bfloat16")
     imgs = pkg.data.synthetic_natural_images(B, W, seed=0)
     batch = torch.from_numpy(np.stack(imgs)[:, :H]).permute(0, 3, 1, 2)
@@ -540,15 +711,16 @@ def phase_main(torch, np, pkg, conv):
     warm_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
 
-    conv.launches = 0
+    counts.reset()
     times = []
     for _ in range(STEPS):
         t0 = time.perf_counter()
         out, xhat = step(batch)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    launches = conv.launches
-    expect_launches(launches, STEPS * expected, f"{STEPS} eval steps")
+    launches = counts.read()
+    expect_launches(launches, launches_of(v2=STEPS * expected),
+                    f"{STEPS} bf16 eval steps")
     xs = batch - 0.5
     bpp = float(out.rate1 + out.rate2)
     psnr = float(pkg.loss.psnr(xs, xhat))
@@ -577,7 +749,8 @@ def phase_main(torch, np, pkg, conv):
            "ms_per_step_all": ms,
            "mp_per_s": B * H * W / 1e6 / (sum(times) / len(times)),
            "warmup_s": warm_s, "peak_mem_gb": peak_gb,
-           "kernel_launches": launches, "launches_per_step": launches / STEPS,
+           "launches": launches,
+           "conv_v2_launches_per_step": launches["conv_v2"] / STEPS,
            "fp32_bpp": bpp32, "fp32_psnr_db": psnr32}
     emit(res)
     if not abs(bpp - bpp32) <= BF16_BPP_RTOL * bpp32 \
@@ -607,9 +780,10 @@ def phase_profile(torch, run_step, step_ms, name="profile"):
           "top": [{"name": k[:90], "ms": ms, "calls": n} for k, ms, n in top]})
 
 
-def phase_train(torch, np, pkg, conv):
+def phase_train(torch, np, pkg, counts):
     """bf16 flagship train steps at B=8 256x256 from the lambda=2000
-    weights; returns the result and a closure that takes one more step."""
+    weights (forward and dx of every dense 3x3 conv through conv_v2);
+    returns the result and a closure that takes one more step."""
     cfg = pkg.config.flagship_config(dtype="bfloat16", lambda_=2000.0,
                                      learning_rate=TRAIN_LR)
     batch = train_batch(torch, np, pkg, TRAIN_B, TRAIN_P, seed=1).to(DEV)
@@ -629,17 +803,17 @@ def phase_train(torch, np, pkg, conv):
     warm_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
 
-    conv.launches = conv.launches_dx = 0
+    counts.reset()
     times, outs = [], []
     for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()
         outs.append(run_step())
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    launches, dx = conv.launches, conv.launches_dx
-    expect_launches((launches, dx),
-                    (TRAIN_STEPS * 2 * n_conv, TRAIN_STEPS * n_conv),
-                    f"{TRAIN_STEPS} train steps (all, dx)")
+    launches = counts.read()
+    expect_launches(launches, launches_of(v2=TRAIN_STEPS * 2 * n_conv,
+                                          v2_dx=TRAIN_STEPS * n_conv),
+                    f"{TRAIN_STEPS} bf16 train steps")
     losses = [float(o.loss) for o in outs]
     last = [float(v) for v in outs[-1]]
     if not all(np.isfinite(losses)) or not all(np.isfinite(last)):
@@ -658,8 +832,8 @@ def phase_train(torch, np, pkg, conv):
            "loss": losses, "mse": last[1], "rate1": last[2], "rate2": last[3],
            "warmup_s": warm_s,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-           "kernel_launches": launches, "dx_launches": dx,
-           "launches_per_step": launches / TRAIN_STEPS,
+           "launches": launches,
+           "conv_v2_launches_per_step": launches["conv_v2"] / TRAIN_STEPS,
            "reckoned_launches_per_step": 2 * n_conv}
     emit(res)
     return res, run_step
@@ -676,12 +850,15 @@ def working_dir(path):
 
 
 def phase_agent(torch, pkg, counts, config_path, overrides, reckon,
-                name="agent"):
+                reckon_test, name="agent"):
     """The CLI on a copy of a config cut by ``overrides``: two epochs, then
     a resumed run. ``reckon(cfg, n_valid)`` gives the kernels' launches in
     the first run. What the resumed run restored is read from the
     checkpoint files: between the runs the saved learning rate is halved,
-    so that a restored value can be told from the config's."""
+    so that a restored value can be told from the config's. Then
+    ``{name}_test``: the CLI's agent in ``mode: test`` on the saved
+    checkpoint, a real bitstream of each test image; ``reckon_test(cfg)``
+    gives the kernels' launches of one image."""
     with open(config_path) as fh:
         raw = json.load(fh)
     raw.update(overrides, exp_name=f"smoke_{name}")
@@ -718,6 +895,8 @@ def phase_agent(torch, pkg, counts, config_path, overrides, reckon,
         with open(os.path.join("experiments", cfg.exp_name, "summaries",
                                "metrics.jsonl")) as fh:
             rows = [json.loads(ln) for ln in fh]
+        test_res = agent_test(torch, pkg, counts, raw, reckon_test,
+                              f"{name}_test")
 
     def adam_steps(payload):
         return sorted({float(st["step"])
@@ -753,7 +932,194 @@ def phase_agent(torch, pkg, counts, config_path, overrides, reckon,
             or not all(r["rd"] == r["rd"] and abs(r["rd"]) != float("inf")
                        for r in rows):
         raise AssertionError(f"agent metrics: {rows}")
+    return res, test_res
+
+
+def agent_test(torch, pkg, counts, raw, reckon_test, name):
+    """The CLI's agent in ``mode: test`` (run in the working directory of
+    the training run, whose checkpoint it restores)."""
+    with open("agent_test.json", "w") as fh:
+        json.dump(dict(raw, mode="test"), fh)
+    cfg = pkg.config.process_config("agent_test.json")
+    n_test = len(list(pkg.data.ImageDataLoader(cfg).test_batches()))
+    counts.reset()
+    t0 = time.perf_counter()
+    agent = pkg.cli.run_agent(cfg)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = counts.read()
+    per = agent.last_test_per_image
+    res = {"phase": name, "config": cfg.exp_name, "dtype": cfg.dtype,
+           "test_images": n_test, "seconds": seconds,
+           "seconds_per_image": seconds / n_test, "launches": launches,
+           "mean_bpp": sum(r["bpp"] for r in per) / len(per),
+           "mean_psnr_db": sum(r["psnr"] for r in per) / len(per),
+           "restored_iteration": agent.current_iteration}
+    emit(res)
+    want = {k: v * n_test for k, v in reckon_test(cfg).items()}
+    expect_launches(launches, want, f"the {name} run")
+    if len(per) != n_test or agent.current_iteration == 0 or not all(
+            math.isfinite(r["bpp"]) and math.isfinite(r["psnr"])
+            for r in per):
+        raise AssertionError(f"{name}: {per}")
     return res
+
+def timing_split(coder, h, w, wall_s):
+    """One image's round trip as encode and decode seconds, each split into
+    the transforms on the card (CUDA events) and the host's coding (the
+    planes' host times summed; they run on threads after the first image)."""
+    t = coder.last_timing
+    return {"wall_s": wall_s,
+            "encode_s": (t["analysis_ms"] + t["encode_host_ms"]) / 1e3,
+            "decode_s": (t["decode_host_ms"] + t["synthesis_ms"]) / 1e3,
+            "analysis_card_ms": t["analysis_ms"],
+            "synthesis_card_ms": t["synthesis_ms"],
+            "encode_host_ms": t["encode_host_ms"],
+            "decode_host_ms": t["decode_host_ms"],
+            "host_wall_ms": t["host_wall_ms"],
+            "coded_mp_per_s": h * w / 1e6 / wall_s}
+
+
+def code_images(torch, pkg, counts, coder, images, want, name):
+    """Each image (uint8 HWC) through ``compress_decompress`` alone, its
+    launches counted; ``want`` is the launches of one image. A plane that
+    does not decode to the encoder's writeback raises in the coder."""
+    rows = []
+    for k, img in enumerate(images):
+        batch = img[None].astype("float32") / 255.0
+        counts.reset()
+        t0 = time.perf_counter()
+        res = coder.compress_decompress(batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counts.read()
+        expect_launches(launches, want, f"{name} image {k}")
+        if res.xhat.shape != batch.shape or not (
+                math.isfinite(res.bpp) and math.isfinite(res.psnr)):
+            raise AssertionError(f"{name} image {k}: bpp {res.bpp}, psnr "
+                                 f"{res.psnr}, xhat {res.xhat.shape}")
+        rows.append({"image": k, "bpp": res.bpp, "psnr": res.psnr,
+                     "bytes": sum(st.nbytes() for st in res.streams),
+                     **timing_split(coder, *img.shape[:2], wall)})
+    return rows
+
+
+def mean(rows, key, skip=0):
+    vals = [r[key] for r in rows[skip:]]
+    return sum(vals) / len(vals)
+
+
+def phase_bitstream(torch, np, pkg, counts):
+    """The flagship's real bitstream in fp32 with the lambda=2000 weights
+    over the 19 dead-leaves images of the held-out set, against the JAX
+    package's on the same snapshot and images."""
+    cfg = pkg.config.flagship_config(lambda_=2000.0)
+    coder = pkg.codec_coder.CodecCoder(cfg, load_model(cfg, pkg), DEV)
+    n, size, seed = BITSTREAM_IMAGES
+    images = pkg.data.synthetic_natural_images(n, size, seed=seed)
+    rows = code_images(torch, pkg, counts, coder, images,
+                       launches_of(conv=2 * coding_conv_launches(cfg)),
+                       "bitstream")
+    with open(TARGETS) as fh:
+        targets = json.load(fh)["per_image"]
+    with open(RD_FLAGSHIP) as fh:
+        rd = json.load(fh)
+    names = sorted(rd["eval_set"])
+    rd_rows = [r for name, r in zip(names, rd["points"]["2000"]["per_image"])
+               if name.startswith(f"natural_{seed}_")]
+    bad = []
+    for r, t in zip(rows, targets):
+        r["target_bpp"], r["target_psnr"] = t["bpp"], t["psnr"]
+        if not abs(r["bpp"] - t["bpp"]) <= TARGET_BPP_RTOL * t["bpp"] \
+                or not abs(r["psnr"] - t["psnr"]) <= TARGET_PSNR_TOL:
+            bad.append(r["image"])
+        emit({"phase": "bitstream_image", **r})
+    res = {"phase": "bitstream", "config": "flagship_lam2000",
+           "dtype": "float32", "images": [n, 3, size, size],
+           "cpu_count": os.cpu_count(),
+           "mean_bpp": mean(rows, "bpp"), "mean_psnr_db": mean(rows, "psnr"),
+           "target_mean_bpp": mean(targets, "bpp"),
+           "target_mean_psnr_db": mean(targets, "psnr"),
+           "max_bpp_rel_gap": max(abs(r["bpp"] - r["target_bpp"])
+                                  / r["target_bpp"] for r in rows),
+           "max_psnr_gap_db": max(abs(r["psnr"] - r["target_psnr"])
+                                  for r in rows),
+           "rd_flagship_rows_1_19_mean_bpp": mean(rd_rows, "bpp"),
+           "rd_flagship_rows_1_19_mean_psnr_db": mean(rd_rows, "psnr"),
+           "launches_per_image": 2 * coding_conv_launches(cfg),
+           # the first image builds the coding tables and runs its planes
+           # one after another; the means leave it out
+           "first_image_s": rows[0]["wall_s"],
+           **{f"mean_{k}": mean(rows, k, skip=1) for k in (
+               "wall_s", "encode_s", "decode_s", "analysis_card_ms",
+               "synthesis_card_ms", "encode_host_ms", "decode_host_ms",
+               "coded_mp_per_s")}}
+    res["gap_to_rd_flagship_bpp"] = res["mean_bpp"] \
+        - res["rd_flagship_rows_1_19_mean_bpp"]
+    res["gap_to_rd_flagship_psnr_db"] = res["mean_psnr_db"] \
+        - res["rd_flagship_rows_1_19_mean_psnr_db"]
+    emit(res)
+    if bad:
+        raise AssertionError(f"bitstream: images {bad} off the JAX targets "
+                             f"(bpp {TARGET_BPP_RTOL}, psnr {TARGET_PSNR_TOL} "
+                             "dB)")
+    return res, rows
+
+
+def phase_bitstream_bf16(torch, np, pkg, counts, fp32_rows):
+    """The same 19 images with bf16 operands (conv_v2 in the analysis and
+    synthesis), held to the fp32 pass; then two Kodak-size images timed."""
+    cfg = pkg.config.flagship_config(lambda_=2000.0, dtype="bfloat16")
+    coder = pkg.codec_coder.CodecCoder(cfg, load_model(cfg, pkg), DEV)
+    n, size, seed = BITSTREAM_IMAGES
+    want = launches_of(v2=2 * coding_conv_launches(cfg))
+    images = pkg.data.synthetic_natural_images(n, size, seed=seed)
+    rows = code_images(torch, pkg, counts, coder, images, want,
+                       "bitstream_bf16")
+    bad = [r["image"] for r, f in zip(rows, fp32_rows)
+           if not abs(r["bpp"] - f["bpp"]) <= BITSTREAM_BF16_BPP_RTOL * f["bpp"]
+           or not abs(r["psnr"] - f["psnr"]) <= BITSTREAM_BF16_PSNR_TOL]
+    # the first image's analysis and synthesis apart: half the launches each
+    x = torch.from_numpy(images[0]).permute(2, 0, 1)[None].float().div(255.0)
+    ycbcr = pkg.color.shift_ycbcr(pkg.color.rgb_to_ycbcr(x.to(DEV)))
+    half = launches_of(v2=coding_conv_launches(cfg))
+    counts.reset()
+    subbands = [coder.analysis(p, ycbcr[:, p:p + 1]) for p in range(3)]
+    torch.cuda.synchronize()
+    expect_launches(counts.read(), half, "bitstream_bf16 analysis")
+    counts.reset()
+    for p, (xe, xo) in enumerate(subbands):
+        coder.synthesis(p, np.round(xe), [np.round(t) for t in xo])
+    torch.cuda.synchronize()
+    expect_launches(counts.read(), half, "bitstream_bf16 synthesis")
+    kodak = np.stack(pkg.data.synthetic_natural_images(KODAK_IMAGES, W,
+                                                       seed=0))[:, :H]
+    big = code_images(torch, pkg, counts, coder, kodak, want,
+                      "bitstream_bf16 512x768")
+    res = {"phase": "bitstream_bf16", "config": "flagship_lam2000",
+           "dtype": "bfloat16", "images": [n, 3, size, size],
+           "cpu_count": os.cpu_count(),
+           "mean_bpp": mean(rows, "bpp"), "mean_psnr_db": mean(rows, "psnr"),
+           "fp32_mean_bpp": mean(fp32_rows, "bpp"),
+           "fp32_mean_psnr_db": mean(fp32_rows, "psnr"),
+           "max_bpp_rel_gap_to_fp32": max(
+               abs(r["bpp"] - f["bpp"]) / f["bpp"]
+               for r, f in zip(rows, fp32_rows)),
+           "max_psnr_gap_to_fp32_db": max(
+               abs(r["psnr"] - f["psnr"]) for r, f in zip(rows, fp32_rows)),
+           "launches_per_image": want, "launches_analysis": half,
+           "launches_synthesis": half,
+           **{f"mean_{k}": mean(rows, k, skip=1) for k in (
+               "wall_s", "encode_s", "decode_s", "analysis_card_ms",
+               "synthesis_card_ms", "encode_host_ms", "decode_host_ms",
+               "coded_mp_per_s")},
+           "kodak": {"images": [KODAK_IMAGES, 3, H, W], "per_image": big}}
+    emit(res)
+    if bad:
+        raise AssertionError(f"bitstream_bf16: images {bad} off the fp32 "
+                             "pass")
+    return res
+
 
 # --- the CDF 9/7 + factorized codec ------------------------------------------
 
@@ -1121,6 +1487,54 @@ def phase_cdf97_train(torch, np, pkg, counts):
     return res, run_step
 
 
+def phase_cdf97_bitstream(torch, np, pkg, counts):
+    """The CDF97 codec's real bitstream (seeded random weights) on four
+    256x256 images: lossless, the real rate near the eval step's
+    likelihood rate, 24 ladder launches an image."""
+    cfg = cdf97_config(pkg)
+    model = cdf97_model(torch, pkg, cfg)
+    step = pkg.state.make_eval_step(cfg, model, DEV)
+    coder = pkg.codec_coder.CodecCoder(cfg, model, DEV)
+    lift_n, ilift_n = ladder_launches(cfg, False)
+    images = pkg.data.synthetic_natural_images(CDF97_BITSTREAM_IMAGES, 256,
+                                               seed=5)
+    likelihood = []
+    for img in images:
+        out, _ = step(torch.from_numpy(img).permute(2, 0, 1)[None].float()
+                      / 255.0)
+        likelihood.append(float(out.rate1 + out.rate2))
+    rows = code_images(torch, pkg, counts, coder, images,
+                       launches_of(lift=lift_n, ilift=ilift_n),
+                       "cdf97_bitstream")
+    for r, lik in zip(rows, likelihood):
+        r["likelihood_bpp"] = lik
+    res = {"phase": "cdf97_bitstream", "config": "cdf97_factorized",
+           "dtype": "float32", "images": [len(images), 3, 256, 256],
+           "per_image": [{k: r[k] for k in ("bpp", "likelihood_bpp", "psnr",
+                                            "wall_s", "encode_s", "decode_s",
+                                            "analysis_card_ms",
+                                            "synthesis_card_ms")}
+                         for r in rows],
+           "max_bpp_rel_gap": max(abs(r["bpp"] - r["likelihood_bpp"])
+                                  / r["likelihood_bpp"] for r in rows)}
+    emit(res)
+    if not res["max_bpp_rel_gap"] <= CDF97_REAL_BPP_RTOL:
+        raise AssertionError("cdf97_bitstream: real rate off the likelihood")
+    return res
+
+
+def reckon_coding(cfg):
+    """The kernels' launches of one image's real bitstream: the scaling
+    AEs' 3x3 convs for the flagship (fp32 here: conv3x3_halo), the ladder
+    for CDF97."""
+    if cfg.netType == "CDF97":
+        lift_n, ilift_n = ladder_launches(cfg, False)
+        return launches_of(lift=lift_n, ilift=ilift_n)
+    n = 2 * coding_conv_launches(cfg)
+    return launches_of(v2=n) if cfg.dtype == "bfloat16" \
+        else launches_of(conv=n)
+
+
 def reckon_flagship_agent(cfg, n_valid):
     n_conv = sum(conv_shapes(cfg).values())
     steps, epochs = AGENT["steps_per_epoch"], AGENT["max_epoch"]
@@ -1163,6 +1577,79 @@ def ladder_entry(name, lift, rows, main_res, train_res):
 
 
 
+def kernel_entries(conv, v2, lift97, rows, bwd_rows, v2_rows, lift_rows,
+                   res):
+    """The ``kernels`` line: every hand-written kernel with its launches on
+    the paths (each counted with the counts set to 0 just before the run)
+    and its time, the plain version's, the bound and the library call's
+    over one step of its path, from this run's per-shape rows."""
+    def per(rows_, key):
+        return sum(r[key] * r["launches_per_step"] for r in rows_)
+
+    def by(rows_, **kw):
+        return [r for r in rows_ if all(r.get(k) == v for k, v in kw.items())]
+
+    def bound_by(rows_, ops="ops_ms", nbytes="bytes_ms"):
+        return "operations" if per(rows_, ops) >= per(rows_, nbytes) \
+            else "bytes"
+
+    k1_32, k1_16 = by(rows, dtype="float32"), by(rows, dtype="bfloat16")
+    b1_32 = by(bwd_rows, dtype="float32")
+    v2_eval, v2_train = by(v2_rows, path="eval"), by(v2_rows, path="train")
+    fp32 = {"parity": res["parity"], "train_parity": res["train_parity"][0],
+            "bitstream": res["bitstream_launches"],
+            "agent": res["agent"]["first_run"]["launches"]["conv3x3_halo"],
+            "agent_test": res["agent_test"]["launches"]["conv3x3_halo"]}
+    bf16 = {"main": res["main"]["launches"]["conv_v2"],
+            "train": res["train"]["launches"]["conv_v2"],
+            "bitstream_bf16": res["bitstream_bf16_launches"]}
+    tpu = "imagecompressionlearnedliftingandlearnedtreebasedmodels_tpu/"
+    ladders = [ladder_entry(k, lift97, lift_rows, res["cdf97_main"],
+                            res["cdf97_train"]) for k in ("lift97", "ilift97")]
+    return [{
+        # kernel 1 carries the fp32 convs: its numbers per fp32 eval step
+        "name": "conv3x3_halo", "route": "cuda",
+        "source": os.path.relpath(conv.SOURCE, HERE),
+        "replaces": tpu + "ops/pallas_conv.py:102",
+        "launches": sum(fp32.values()), "launches_by_path": fp32,
+        "max_abs_err": max([r["max_abs_err"] for r in rows]
+                           + [r["fwd_max_abs_err"] for r in bwd_rows]),
+        "dtype": "float32", "ms": per(k1_32, "ms"),
+        "plain_ms": per(k1_32, "plain_ms"), "bound_ms": per(k1_32, "bound_ms"),
+        "bound_by": bound_by(k1_32), "library_ms": per(k1_32, "library_ms"),
+        "bf16_ms": per(k1_16, "ms"), "bf16_bound_ms": per(k1_16, "bound_ms"),
+        "bf16_library_ms": per(k1_16, "library_ms")}, {
+        "name": "conv3x3_halo_dx", "route": "cuda",
+        "source": os.path.relpath(conv.SOURCE, HERE),
+        "replaces": tpu + "ops/pallas_conv.py:137",
+        "launches": res["train_parity"][1]
+        + res["agent"]["first_run"]["launches"]["conv3x3_halo_dx"],
+        "max_abs_err": max(r["dx_max_abs_err"] for r in bwd_rows),
+        "dtype": "float32", "ms": per(b1_32, "dx_ms"),
+        "plain_ms": per(b1_32, "dx_plain_ms"),
+        "bound_ms": per(b1_32, "dx_bound_ms"),
+        "bound_by": bound_by(b1_32, nbytes="dx_bytes_ms"),
+        "library_ms": per(b1_32, "dx_library_ms")}, *ladders, {
+        "name": "conv_v2", "route": "cuda",
+        "source": os.path.relpath(v2.SOURCE, HERE),
+        "replaces": "scripts/bench_pallas_v2.py:34",
+        "launches": sum(bf16.values()), "launches_by_path": bf16,
+        "launches_dx": res["train"]["launches"]["conv_v2_dx"],
+        "max_abs_err": max([r["max_abs_err"] for r in v2_rows if "ms" in r]
+                           + [r["fwd_max_abs_err"] for r in v2_train]
+                           + [r["dx_max_abs_err"] for r in v2_train]),
+        "dtype": "bfloat16", "ms": per(v2_eval, "ms"),
+        "plain_ms": per(v2_eval, "plain_ms"),
+        "bound_ms": per(v2_eval, "bound_ms"), "bound_by": bound_by(v2_eval),
+        "library_ms": per(v2_eval, "library_ms"),
+        "conv3x3_halo_bf16_ms": per(v2_eval, "conv3x3_halo_bf16_ms"),
+        "train_step_fwd_ms": per(v2_train, "fwd_ms"),
+        "train_step_dx_ms": per(v2_train, "dx_ms"),
+        "train_step_dx_plain_ms": per(v2_train, "dx_plain_ms"),
+        "train_step_dx_bound_ms": per(v2_train, "dx_bound_ms"),
+        "train_step_dx_library_ms": per(v2_train, "dx_library_ms")}]
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
 
@@ -1177,20 +1664,23 @@ def main() -> int:
     from types import SimpleNamespace
     from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch import (
         cli, config)
+    from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.coding import (
+        codec_coder, native_build, native_ctx, rans)
     from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.entropy import (
         bottleneck)
     from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.models import (
         codec)
     from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.ops import (
-        conv3x3_halo as conv, lift97)
+        color, conv3x3_halo as conv, conv_v2 as v2, lift97)
     from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.tools import (
         weights)
     from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.train import (
         checkpoint, data, loss, state)
     pkg = SimpleNamespace(cli=cli, config=config, codec=codec, weights=weights,
                           checkpoint=checkpoint, data=data, loss=loss,
-                          state=state, bottleneck=bottleneck)
-    counts = Counts(conv, lift97)
+                          state=state, bottleneck=bottleneck,
+                          codec_coder=codec_coder, color=color)
+    counts = Counts(conv, v2, lift97)
     t_start = time.perf_counter()
 
     card = card_line()
@@ -1199,34 +1689,54 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:  # one nvcc each
-        for job in [pool.submit(m.build) for m in (conv, lift97)]:
+    kernels = (conv, v2, lift97)
+    hosts = (rans.get_lib, native_ctx.ctx_fingerprint)
+    with concurrent.futures.ThreadPoolExecutor(5) as pool:  # one compiler each
+        for job in [pool.submit(m.build) for m in kernels] \
+                + [pool.submit(f) for f in hosts]:
             job.result()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": [{
               "source": os.path.relpath(m.SOURCE, HERE),
               "ptxas": [ln.strip() for ln in m.LIBRARY.build_log.splitlines()
                         if "registers" in ln or "spill" in ln]}
-              for m in (conv, lift97)]})
+              for m in kernels] + [{
+              "source": os.path.relpath(lib.source, HERE),
+              "g++_flags": lib.flags_used}
+              for lib in (native_build.RANS, native_build.WAVEFRONT_CTX)],
+          "ctx_fp": native_ctx.ctx_fingerprint()})
 
+    res = {}
     cfg = config.flagship_config(dtype="bfloat16")
     with tf32_off(torch):
         rows = phase_kernel(torch, F, conv, cfg)
         bwd_rows = phase_kernel_bwd(torch, conv, cfg)
-        phase_parity(torch, pkg, conv)
+        v2_rows = phase_conv_v2_kernel(torch, F, conv, v2, cfg, rows,
+                                       bwd_rows)
+        res["parity"] = phase_parity(torch, pkg, conv)
     with tf32_off(torch, deterministic=True):
-        phase_train_parity(torch, numpy, pkg, conv)
-    main_res, step, batch = phase_main(torch, numpy, pkg, conv)
+        res["train_parity"] = phase_train_parity(torch, numpy, pkg, conv)
+    main_res, step, batch = phase_main(torch, numpy, pkg, counts)
+    res["main"] = main_res
     phase_profile(torch, lambda: step(batch), main_res["ms_per_step"])
     del step, batch
     torch.cuda.empty_cache()
-    train_res, train_step = phase_train(torch, numpy, pkg, conv)
+    train_res, train_step = phase_train(torch, numpy, pkg, counts)
+    res["train"] = train_res
     phase_profile(torch, train_step, train_res["ms_per_step"],
                   "train_profile")
     del train_step
     torch.cuda.empty_cache()
     with tf32_off(torch):
-        phase_agent(torch, pkg, counts, CONFIG, AGENT, reckon_flagship_agent)
+        res["agent"], res["agent_test"] = phase_agent(
+            torch, pkg, counts, CONFIG, AGENT, reckon_flagship_agent,
+            reckon_coding)
+        bits, bits_rows = phase_bitstream(torch, numpy, pkg, counts)
+    res["bitstream_launches"] = bits["launches_per_image"] * len(bits_rows)
+    bits16 = phase_bitstream_bf16(torch, numpy, pkg, counts, bits_rows)
+    res["bitstream_bf16_launches"] = bits16["launches_per_image"]["conv_v2"] \
+        * (BITSTREAM_IMAGES[0] + KODAK_IMAGES)
+    torch.cuda.empty_cache()
 
     cdf97_cfg = cdf97_config(pkg)
     with tf32_off(torch):
@@ -1234,34 +1744,40 @@ def main() -> int:
     with tf32_off(torch, deterministic=True):
         phase_cdf97_parity(torch, numpy, pkg, counts)
     cdf_main, step, batch = phase_cdf97_main(torch, numpy, pkg, counts)
+    res["cdf97_main"] = cdf_main
     phase_profile(torch, lambda: step(batch), cdf_main["ms_per_step"],
                   "cdf97_profile")
     del step, batch
     torch.cuda.empty_cache()
     cdf_train, train_step = phase_cdf97_train(torch, numpy, pkg, counts)
+    res["cdf97_train"] = cdf_train
     phase_profile(torch, train_step, cdf_train["ms_per_step"],
                   "cdf97_train_profile")
     del train_step
     torch.cuda.empty_cache()
+    with tf32_off(torch):
+        phase_cdf97_bitstream(torch, numpy, pkg, counts)
     phase_agent(torch, pkg, counts, CDF97_CONFIG, CDF97_AGENT,
-                reckon_cdf97_agent, "cdf97_agent")
+                reckon_cdf97_agent, reckon_coding, "cdf97_agent")
 
     bf16 = [r for r in rows if r["dtype"] == "bfloat16"]
     bwd16 = [r for r in bwd_rows if r["dtype"] == "bfloat16"]
+    v2_eval = [r for r in v2_rows if r["path"] == "eval"]
+    v2_train = [r for r in v2_rows if r["path"] == "train"]
 
     def per_step(key, rows=bf16):
         return sum(r[key] * r["launches_per_step"] for r in rows)
 
-    emit({"phase": "kernel_per_step", "dtype": "bfloat16",
+    emit({"phase": "kernel_per_step", "kernel": "conv3x3_halo",
+          "dtype": "bfloat16",
           "launches": sum(r["launches_per_step"] for r in bf16),
           "tflop": sum(r["gflop"] * r["launches_per_step"] for r in bf16)
           / 1e3,
           "ms": per_step("ms"), "plain_ms": per_step("plain_ms"),
           "library_ms": per_step("library_ms"),
-          "bound_ms": per_step("bound_ms"),
-          "share_of_step": per_step("ms") / main_res["ms_per_step"]})
-    step_ms = train_res["ms_per_step"]
-    emit({"phase": "kernel_per_train_step", "dtype": "bfloat16",
+          "bound_ms": per_step("bound_ms")})
+    emit({"phase": "kernel_per_train_step", "kernel": "conv3x3_halo",
+          "dtype": "bfloat16",
           "launches": 2 * sum(r["launches_per_step"] for r in bwd16),
           "tflop_each_of_fwd_dx_dk": per_step("gflop", bwd16) / 1e3,
           "fwd_ms": per_step("fwd_ms", bwd16),
@@ -1271,12 +1787,26 @@ def main() -> int:
           "dx_bound_ms": per_step("dx_bound_ms", bwd16),
           "dk_ms": per_step("dk_ms", bwd16),
           "dk_library_ms": per_step("dk_library_ms", bwd16),
-          "dk_bound_ms": per_step("dk_bound_ms", bwd16),
-          "kernel_share_of_step": (per_step("fwd_ms", bwd16)
-                                   + per_step("dx_ms", bwd16)) / step_ms,
-          "dk_share_of_step": per_step("dk_ms", bwd16) / step_ms})
-    ladders = [ladder_entry(k, lift97, lift_rows, cdf_main, cdf_train)
-               for k in ("lift97", "ilift97")]
+          "dk_bound_ms": per_step("dk_bound_ms", bwd16)})
+    emit({"phase": "conv_v2_per_step", "dtype": "bfloat16",
+          "launches": sum(r["launches_per_step"] for r in v2_eval),
+          "tflop": sum(r["gflop"] * r["launches_per_step"] for r in v2_eval)
+          / 1e3,
+          "ms": per_step("ms", v2_eval), "plain_ms": per_step("plain_ms", v2_eval),
+          "library_ms": per_step("library_ms", v2_eval),
+          "bound_ms": per_step("bound_ms", v2_eval),
+          "conv3x3_halo_bf16_ms": per_step("conv3x3_halo_bf16_ms", v2_eval),
+          "share_of_step": per_step("ms", v2_eval) / main_res["ms_per_step"],
+          "train_step_fwd_ms": per_step("fwd_ms", v2_train),
+          "train_step_dx_ms": per_step("dx_ms", v2_train),
+          "train_step_dx_library_ms": per_step("dx_library_ms", v2_train),
+          "train_step_dx_bound_ms": per_step("dx_bound_ms", v2_train),
+          "train_step_share": (per_step("fwd_ms", v2_train)
+                               + per_step("dx_ms", v2_train))
+          / train_res["ms_per_step"]})
+    entries = kernel_entries(conv, v2, lift97, rows, bwd_rows, v2_rows,
+                             lift_rows, res)
+    ladders = [e for e in entries if e["name"] in ("lift97", "ilift97")]
     emit({"phase": "ladder_per_step", "dtype": "float32",
           "eval_step_ms": cdf_main["ms_per_step"],
           "train_step_ms": cdf_train["ms_per_step"],
@@ -1287,39 +1817,7 @@ def main() -> int:
           / cdf_main["ms_per_step"],
           "share_of_train_step": sum(e["train_step_ms"] for e in ladders)
           / cdf_train["ms_per_step"]})
-    # launches: counted over the eval path (`main`, `cdf97_main`) and the
-    # train path (`train`, `cdf97_train`), each with the counts set to 0
-    # just before it
-    fwd_train = train_res["kernel_launches"] - train_res["dx_launches"]
-    emit({"kernels": [{
-        "name": "conv3x3_halo", "route": "cuda",
-        "source": os.path.relpath(conv.SOURCE, HERE),
-        "replaces": "imagecompressionlearnedliftingandlearnedtreebasedmodels"
-                    "_tpu/ops/pallas_conv.py:102",
-        "launches": main_res["kernel_launches"] + fwd_train,
-        "launches_eval_path": main_res["kernel_launches"],
-        "launches_train_path": fwd_train,
-        "max_abs_err": max([r["max_abs_err"] for r in rows]
-                           + [r["fwd_max_abs_err"] for r in bwd_rows]),
-        "ms": per_step("ms"), "plain_ms": per_step("plain_ms"),
-        "bound_ms": per_step("bound_ms"),
-        "bound_by": "operations" if per_step("ops_ms") >= per_step("bytes_ms")
-        else "bytes",
-        "library_ms": per_step("library_ms")}, {
-        "name": "conv3x3_halo_dx", "route": "cuda",
-        "source": os.path.relpath(conv.SOURCE, HERE),
-        "replaces": "imagecompressionlearnedliftingandlearnedtreebasedmodels"
-                    "_tpu/ops/pallas_conv.py:137",
-        "launches": train_res["dx_launches"],
-        "max_abs_err": max(r["dx_max_abs_err"] for r in bwd_rows),
-        "ms": per_step("dx_ms", bwd16),
-        "plain_ms": per_step("dx_plain_ms", bwd16),
-        "bound_ms": per_step("dx_bound_ms", bwd16),
-        "bound_by": "operations" if per_step("ops_ms", bwd16)
-        >= per_step("dx_bytes_ms", bwd16) else "bytes",
-        "library_ms": per_step("dx_library_ms", bwd16)}, *ladders]})
-    emit({"phase": "bounds_of_kernels_to_port",
-          "rows": unported_kernel_bounds()})
+    emit({"kernels": entries})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,8 @@ detached.
 
 Parameters carry the flax names and shapes: ``matrix_i`` (C, out, in),
 ``bias_i`` (C, out, 1), ``factor_i`` (C, out, 1) and ``quantiles``
-(C, 1, 3). ``pmf_table`` (the coding tables) comes with the bitstream.
+(C, 1, 3). :meth:`EntropyBottleneck.pmf_table` gives the coding tables of
+the bitstream.
 """
 
 from __future__ import annotations
@@ -113,3 +114,26 @@ class EntropyBottleneck(nn.Module):
         lik = lower_bound(lik, LIKELIHOOD_BOUND)
         shape = (x_qnt.shape[1], x_qnt.shape[0]) + x_qnt.shape[2:]
         return x_qnt, lik.reshape(shape).transpose(0, 1)
+
+    @torch.no_grad()
+    def pmf_table(self):
+        """Dense pmf rows for the coding CDF tables (compressAI's
+        ``EntropyBottleneck.update``): ``(pmf, tail_mass, pmf_length,
+        offset)`` of shapes ``(C, max_len)``, ``(C,)``, ``(C,)``, ``(C,)``,
+        the inputs of the host ``pmf_to_quantized_cdf``."""
+        q = self.quantiles.detach()
+        medians = q[:, 0, 1]
+        minima = torch.clamp_min(torch.ceil(medians - q[:, 0, 0]), 0).int()
+        maxima = torch.clamp_min(torch.ceil(q[:, 0, 2] - medians), 0).int()
+        pmf_length = minima + maxima + 1
+        max_length = int(pmf_length.max())
+        samples = (torch.arange(max_length, device=q.device)[None, :]
+                   - minima[:, None] + medians[:, None])     # (C, max_len)
+        flat = samples[:, None, :]
+        lower = self._logits_cumulative(flat - 0.5, detach=True)
+        upper = self._logits_cumulative(flat + 0.5, detach=True)
+        sign = -torch.sign(lower + upper)
+        pmf = (torch.sigmoid(sign * upper)
+               - torch.sigmoid(sign * lower)).abs()[:, 0, :]
+        tail = torch.sigmoid(lower[:, 0, 0]) + torch.sigmoid(-upper[:, 0, -1])
+        return pmf, tail, pmf_length, -minima

@@ -1,6 +1,6 @@
 """Transform-path ops: color, GDN, masked convs, lifting, the 9/7 DWT,
-scaling AEs, and the hand-written kernels (the 3x3 conv, the 9/7 ladder)
-with their nvcc build."""
+scaling AEs, and the hand-written kernels (the 3x3 conv: fp32 and bf16
+tensor-core forms; the 9/7 ladder) with their nvcc build."""
 
 from typing import List
 

@@ -1,4 +1,4 @@
-"""SAME 3x3 convolution: the hand-written CUDA kernel, its backward and
+"""SAME 3x3 convolution: the hand-written CUDA kernels, the backward and
 their plain versions.
 
 Counterpart of the JAX package's Pallas kernel
@@ -6,12 +6,18 @@ Counterpart of the JAX package's Pallas kernel
 zero-padded SAME 3x3 conv with no bias whose operands are cast to ``dtype``
 (bf16 or fp32) and whose sums and output are fp32.
 
-:func:`conv3x3_halo` is a ``torch.autograd.Function`` on both devices:
+:func:`conv3x3_halo` is a ``torch.autograd.Function`` on both devices. On a
+CUDA tensor it picks the kernel by operand type, for the forward and for dx
+alike: bf16 operands run the tensor-core implicit GEMM of
+``csrc/conv_v2.cu`` (:mod:`.conv_v2`, the counterpart of
+``scripts/bench_pallas_v2.py::conv_v2``); fp32 operands run this module's
+CUDA-core kernel, ``csrc/conv3x3_halo.cu``. Either is built at first use by
+:mod:`.nvcc`, or the call raises: it never falls back to another path.
 
-- forward, on a CUDA tensor: the kernel of ``csrc/conv3x3_halo.cu`` (built
-  at first use by :mod:`.nvcc`), or it raises. It never falls back
-  to another path. On a CPU tensor: :func:`conv3x3_halo_plain`, a plain
-  ``F.conv2d`` in fp32 on operands cast as the kernel casts them.
+- forward, on a CUDA tensor: the kernel of the operand type. On a CPU
+  tensor: :func:`conv3x3_halo_plain`, a plain ``F.conv2d`` in fp32 on
+  operands cast as the kernel casts them (for bf16 the same function as
+  :func:`.conv_v2.conv_v2_plain`).
 - backward, as ``_bwd`` computes it. ``dy`` is rounded to ``dtype``.
   **dx** is the same conv of ``dy`` with the spatially flipped, in/out
   swapped weight: on a CUDA tensor the same kernel with Cin and Cout
@@ -24,9 +30,10 @@ zero-padded SAME 3x3 conv with no bias whose operands are cast to ``dtype``
 The input is saved for the backward already cast to ``dtype``. Autograd
 through the plain forward would not do: it never rounds ``dy``.
 
-The module-level ``launches`` counts kernel launches (forward and dx) and
-``launches_dx`` those of them made for a dx; a run sets them to 0 and reads
-them back to show which path it went through.
+The module-level ``launches`` counts launches of this module's kernel
+(forward and dx) and ``launches_dx`` those of them made for a dx;
+:mod:`.conv_v2` keeps its own pair. A run sets them to 0 and reads them
+back to show which path it went through.
 """
 
 from __future__ import annotations
@@ -37,13 +44,13 @@ import os
 import torch
 import torch.nn.functional as F
 
-from . import nvcc
+from . import conv_v2, nvcc
 
 SOURCE = os.path.join(nvcc.CSRC, "conv3x3_halo.cu")
 OPERAND_DTYPES = (torch.float32, torch.bfloat16)
 
 launches = 0     # kernel launches; callers reset it to 0 before a counted run
-launches_dx = 0  # those of them that computed a dx
+launches_dx = 0  # those of them that computed a dx (fp32 operands only)
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -169,9 +176,11 @@ class _Conv3x3Halo(torch.autograd.Function):
             xq = xq.contiguous(memory_format=torch.channels_last)
         ctx.save_for_backward(xq, weight)
         ctx.dtype, ctx.x_dtype = dtype, x.dtype
-        if on_card:
-            return launch_kernel(xq, tap_major(weight, dtype))
-        return conv3x3_halo_plain(xq, weight, dtype)
+        if not on_card:
+            return conv3x3_halo_plain(xq, weight, dtype)
+        if dtype == torch.bfloat16:
+            return conv_v2.launch_kernel(xq, tap_major(weight, dtype))
+        return launch_kernel(xq, tap_major(weight, dtype))
 
     @staticmethod
     def backward(ctx, dy):
@@ -187,9 +196,13 @@ class _Conv3x3Halo(torch.autograd.Function):
             return (dx if need_dx else None, dk if need_dk else None, None)
         dyq = dy.to(dtype).contiguous(memory_format=torch.channels_last)
         if need_dx:
-            dx = launch_kernel(dyq, tap_major(flip_swap(weight), dtype)
-                               ).to(ctx.x_dtype)
-            launches_dx += 1
+            w9 = tap_major(flip_swap(weight), dtype)
+            if dtype == torch.bfloat16:
+                dx = conv_v2.launch_kernel(dyq, w9, dx=True)
+            else:
+                dx = launch_kernel(dyq, w9)
+                launches_dx += 1
+            dx = dx.to(ctx.x_dtype)
         if need_dk:
             dk = dk_product(xq, dyq)
         return dx, dk, None
@@ -202,8 +215,9 @@ def conv3x3_halo(x: torch.Tensor, weight: torch.Tensor,
 
     x: (B, Cin, H, W); weight: (Cout, Cin, 3, 3) (PyTorch layout); operands
     are cast to ``dtype`` (bf16 or fp32). A CUDA input runs the hand-written
-    kernel, forward and dx, and comes back in ``channels_last``; a CPU input
-    runs the plain versions.
+    kernel of that type (bf16: ``conv_v2``, fp32: ``conv3x3_halo``), forward
+    and dx, and comes back in ``channels_last``; a CPU input runs the plain
+    versions.
     """
     if dtype not in OPERAND_DTYPES:
         raise ValueError(f"conv3x3_halo: operand dtype must be fp32 or bf16, "

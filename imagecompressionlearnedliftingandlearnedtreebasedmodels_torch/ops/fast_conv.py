@@ -1,8 +1,11 @@
 """Convolution layers of the codec's conv stacks (NCHW).
 
 - :class:`FastConv3x3`: every dense 3x3 layer of the main path (the Berk
-  scaling AEs and the ZTsep parent-context stacks) in both dtypes. On a
-  CUDA tensor it always runs the hand-written ``conv3x3_halo`` kernel.
+  scaling AEs and the ZTsep parent-context stacks) in both dtypes, through
+  ``conv3x3_halo``. On a CUDA tensor it always runs a hand-written kernel,
+  picked by operand type: bf16 operands the tensor-core implicit GEMM
+  ``csrc/conv_v2.cu``, fp32 operands the CUDA-core ``csrc/conv3x3_halo.cu``
+  (forward and dx alike).
 - :class:`Conv2d`: any other SAME conv (the 5x5 lifting P/U convs, the
   grouped 1x1 fusion stack). ``F.conv2d``, grouped where needed: the JAX
   package's ``FastConv5x5``/``FastGroupedConv1x1`` are layout rewrites for
@@ -54,7 +57,9 @@ class Conv2d(nn.Module):
 
 class FastConv3x3(nn.Module):
     """Dense SAME 3x3 conv through ``conv3x3_halo`` (fp32 output, fp32 bias
-    added after). ``dtype=None`` runs fp32 operands."""
+    added after). ``dtype=None`` runs fp32 operands: on the card the kernel
+    of ``csrc/conv3x3_halo.cu``; ``dtype=bfloat16`` runs bf16 operands: on
+    the card the tensor-core kernel of ``csrc/conv_v2.cu``."""
 
     def __init__(self, cin: int, cout: int, dtype=None):
         super().__init__()

@@ -7,8 +7,10 @@ wraps training in ``torch.autograd.detect_anomaly``). Any exception
 triggers a checkpoint save before it is raised again.
 
 The device is explicit: CUDA unless the caller passes ``device="cpu"``.
-``test`` (the real bitstream, ROADMAP Queue A item 8), ``train_postprocess``
-(item 12) and a mesh of more than one device (item 13) are not ported yet
+``test`` codes every test image into a real bitstream and back
+(``coding/codec_coder.py``: the transforms on the device, the entropy
+coding in host C++). ``train_postprocess`` (ROADMAP Queue A item 12), a
+mesh of more than one device and tiled coding (item 13) are not ported yet
 and raise ``NotImplementedError``. ``steps_per_call`` is accepted and
 ignored: it chains steps to hide a TPU's dispatch latency, and every step
 here is dispatched on its own.
@@ -82,6 +84,8 @@ class LiftingDWTAgent:
         self.train_logger = RDLogger(self.logger, jsonl)
         self.trnit_logger = RDLogger(self.logger, jsonl)
         self.valid_logger = RDLogger(self.logger, jsonl)
+        self.test_logger = RDLogger(self.logger, jsonl)
+        self.last_test_per_image = []
 
         if cfg.mode in ("test", "validate", "validate_recu_reco"):
             self.load_checkpoint("model_best")
@@ -213,9 +217,30 @@ class LiftingDWTAgent:
         self.logger.info("validate_recu_reco: not implemented (stub parity)")
 
     def test(self):
-        raise NotImplementedError(
-            "mode 'test' encodes and decodes a real bitstream, which is not "
-            "ported yet (ROADMAP Queue A item 8)")
+        """Real encode and decode of every test image, one at a time, with
+        the bitstream path; logs each image and the means. Returns
+        ``(mean PSNR, mean bpp)``."""
+        from ..coding.codec_coder import CodecCoder
+
+        coder = CodecCoder(self.cfg, self.model, self.device)
+        psnrs, bpps = [], []
+        for batch in self.data.test_batches():
+            res = coder.compress_decompress(np.asarray(batch))
+            self.heartbeat.beat()
+            psnrs.append(res.psnr)
+            bpps.append(res.bpp)
+            self.test_logger(0.0, 10 ** (-res.psnr / 10), res.bpp, 0.0)
+            self.logger.info(f" test image {len(psnrs) - 1}: "
+                             f"psnr = {res.psnr:.3f}, bpp = {res.bpp:.5f}")
+        # per-image operating points: the spread is part of the result
+        self.last_test_per_image = [
+            {"psnr": round(float(p), 3), "bpp": round(float(b), 5)}
+            for p, b in zip(psnrs, bpps)]
+        self.logger.info(
+            f" avg_psnr = {np.mean(psnrs):.2f} (std {np.std(psnrs):.2f}), "
+            f"total_rate = {np.mean(bpps):.4f} bpp "
+            f"(std {np.std(bpps):.4f}, real bitstream)")
+        return float(np.mean(psnrs)), float(np.mean(bpps))
 
     def train_postprocess(self):
         raise NotImplementedError(

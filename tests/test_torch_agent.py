@@ -331,12 +331,35 @@ def test_agent_saves_on_a_crash(tmp_path):
     assert len(saved["optimizer"]["state"]) > 0
 
 
-@pytest.mark.parametrize("mode,item", [("test", "item 8"),
+@pytest.mark.parametrize("mode,item", [("test", "item 13"),
                                        ("train_postprocess", "item 12")])
 def test_unported_modes_raise(tmp_path, mode, item):
-    agent = ploop.LiftingDWTAgent(tiny_cfg(tmp_path, mode=mode), device="cpu")
+    """``train_postprocess`` is not ported; ``test`` is, but not its tiled
+    coding (a ``tile_size`` that divides the 64-pixel test images)."""
+    agent = ploop.LiftingDWTAgent(tiny_cfg(tmp_path, mode=mode, tile_size=16),
+                                  device="cpu")
     with pytest.raises(NotImplementedError, match=item):
         agent.run()
+
+
+def test_cli_test_mode_codes_a_real_bitstream(tmp_path, monkeypatch, caplog):
+    """The CLI in ``mode: test`` on the checkpoint of a one-step rehearsal:
+    each of the two 32x32 test images coded to bytes and back, and the
+    real-bitstream line logged."""
+    monkeypatch.chdir(tmp_path)
+    images = tiny_cfg(tmp_path).valid_data
+    raw = dict(TINY, exp_name="bits", max_epoch=1, steps_per_epoch=1,
+               valid_data=images, test_data=images, test_patch_size=32)
+    for mode in ("train", "test"):
+        with open("bits.json", "w") as fh:
+            json.dump(dict(raw, mode=mode), fh)
+        with caplog.at_level("INFO", logger="lwc_torch"):
+            assert pcli.main(["--device", "cpu", "bits.json"]) == 0
+    lines = [r.getMessage() for r in caplog.records]
+    assert any("restored checkpoint 'model_best'" in ln for ln in lines)
+    assert sum(" test image " in ln for ln in lines) == 2
+    last = [ln for ln in lines if "total_rate" in ln][-1]
+    assert "real bitstream" in last and "avg_psnr" in last
 
 
 def test_unported_options_raise(tmp_path):

@@ -1,6 +1,7 @@
 """The hand-written kernels against their plain versions, on the card:
-conv3x3_halo forward and backward, and the CDF 9/7 ladder's analysis and
-synthesis kernels in all four uses. Imports no JAX, so it runs where only PyTorch is installed:
+the 3x3 conv Function forward and backward in both operand types (fp32:
+conv3x3_halo; bf16: the tensor-core conv_v2), conv_v2 alone, and the CDF
+9/7 ladder's analysis and synthesis kernels in all four uses. Imports no JAX, so it runs where only PyTorch is installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -12,7 +13,7 @@ import pytest
 import torch
 
 from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.ops import (
-    conv3x3_halo as conv, dwt97, lift97)
+    conv3x3_halo as conv, conv_v2, dwt97, lift97)
 
 # max |kernel - plain| / max |plain|: fp32 sums of the same exact products
 # in another order
@@ -30,6 +31,11 @@ SHAPES = [
     (2, 9, 7, 243, 3),      # plc width in, narrow out, image < one tile
     (1, 64, 96, 96, 192),   # a Berk AE layer
 ]
+
+
+def kernel_of(dtype):
+    """The module whose kernel the Function launches for ``dtype``."""
+    return conv_v2 if dtype == torch.bfloat16 else conv
 
 
 @pytest.fixture
@@ -53,11 +59,12 @@ def test_kernel_matches_plain(card, dtype, b, h, w, cin, cout):
     x = torch.from_numpy(rng.randn(b, cin, h, w).astype(np.float32)).to(card)
     wt = torch.from_numpy((rng.randn(cout, cin, 3, 3) / np.sqrt(9 * cin))
                           .astype(np.float32)).to(card)
-    conv.launches = 0
+    mod = kernel_of(dtype)
+    conv.launches = conv_v2.launches = 0
     with torch.no_grad():
         got = conv.conv3x3_halo(x, wt, dtype)
     torch.cuda.synchronize()
-    assert conv.launches == 1
+    assert mod.launches == 1 and conv.launches + conv_v2.launches == 1
     assert got.dtype == torch.float32 and got.shape == (b, cout, h, w)
     want = conv.conv3x3_halo_plain(x, wt, dtype)
     err = (got - want).abs().max().item() / want.abs().max().item()
@@ -78,12 +85,14 @@ def test_kernel_backward_matches_plain(card, dtype, b, h, w, cin, cout):
     dy = torch.from_numpy(rng.randn(b, cout, h, w).astype(np.float32)).to(card)
     x.requires_grad_(True)
     wt.requires_grad_(True)
-    conv.launches = 0
+    mod = kernel_of(dtype)
+    conv.launches = conv_v2.launches = 0
     y = conv.conv3x3_halo(x, wt, dtype)
-    assert conv.launches == 1
+    assert mod.launches == 1
     y.backward(dy)
     torch.cuda.synchronize()
-    assert conv.launches == 2            # forward and dx
+    assert mod.launches == 2             # forward and dx
+    assert conv.launches + conv_v2.launches == 2
     want_dx, want_dk = conv.conv3x3_halo_bwd_plain(x.detach(), wt.detach(),
                                                    dy, dtype)
     want_y = conv.conv3x3_halo_plain(x.detach(), wt.detach(), dtype)
@@ -96,10 +105,78 @@ def test_kernel_backward_matches_plain(card, dtype, b, h, w, cin, cout):
     assert dx_err.item() < TOL
     assert dk_err.item() < (DK_BF16_TOL if dtype == torch.bfloat16 else TOL)
     # a weight-only gradient launches no dx kernel
-    conv.launches = 0
+    mod.launches = 0
     y = conv.conv3x3_halo(x.detach(), wt, dtype)
     torch.autograd.grad(y, wt, dy)
-    assert conv.launches == 1
+    assert mod.launches == 1
+
+
+# conv_v2 alone: every width class of the flagship's bf16 convs (Cin 1, 3,
+# 32, 96, 192, 243; Cout 1, 3, 32, 96, 192, 243), ragged tiles both ways
+V2_SHAPES = [
+    (2, 13, 40, 3, 96),     # narrow in (K padded from 3 to 16), ragged rows
+    (1, 17, 35, 32, 70),    # ragged rows and columns, two Cout tiles
+    (2, 9, 7, 243, 3),      # plc width in (last K chunk of 3), Cout 3
+    (1, 20, 33, 96, 192),   # a Berk AE layer, ragged columns
+    (1, 16, 64, 192, 96),
+    (2, 12, 20, 1, 32),     # the LL AE's ends: 1 -> 32
+    (1, 11, 18, 32, 1),     # and 32 -> 1
+    (1, 8, 32, 3, 243),     # plc's first layer
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,cin,cout", V2_SHAPES)
+def test_conv_v2_matches_plain_forward_and_dx(card, b, h, w, cin, cout):
+    """Direct launches: the forward, and dx (the same kernel on the
+    flipped, swapped weight), against ``conv_v2_plain``."""
+    rng = np.random.RandomState(cin * cout + h)
+    x = torch.from_numpy(rng.randn(b, cin, h, w).astype(np.float32)).to(card)
+    wt = torch.from_numpy((rng.randn(cout, cin, 3, 3) / np.sqrt(9 * cin))
+                          .astype(np.float32)).to(card)
+    dy = torch.from_numpy(rng.randn(b, cout, h, w).astype(np.float32)).to(card)
+    cl = torch.channels_last
+    conv_v2.launches = conv_v2.launches_dx = 0
+    got = conv_v2.launch_kernel(x.to(torch.bfloat16).contiguous(memory_format=cl),
+                                conv.tap_major(wt, torch.bfloat16))
+    wdx = conv.flip_swap(wt)
+    got_dx = conv_v2.launch_kernel(
+        dy.to(torch.bfloat16).contiguous(memory_format=cl),
+        conv.tap_major(wdx, torch.bfloat16), dx=True)
+    torch.cuda.synchronize()
+    assert (conv_v2.launches, conv_v2.launches_dx) == (2, 1)
+    for g, want in ((got, conv_v2.conv_v2_plain(x, wt)),
+                    (got_dx, conv_v2.conv_v2_plain(dy, wdx))):
+        assert g.dtype == torch.float32 and g.shape == want.shape
+        assert g.is_contiguous(memory_format=cl)
+        err = (g - want).abs().max().item() / want.abs().max().item()
+        assert err < TOL
+
+
+@pytest.mark.cuda
+def test_bf16_function_on_the_card_runs_only_conv_v2(card, monkeypatch):
+    """bf16 on the card: forward and dx through conv_v2, never the plain
+    versions nor the fp32 kernel; a wrong operand raises."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("a bf16 CUDA conv left the conv_v2 kernel")
+
+    for mod, name in ((conv, "launch_kernel"), (conv, "conv3x3_halo_plain"),
+                      (conv_v2, "conv_v2_plain")):
+        monkeypatch.setattr(mod, name, refuse)
+    x = torch.randn(2, 96, 24, 40, device=card, requires_grad=True)
+    wt = torch.randn(192, 96, 3, 3, device=card, requires_grad=True)
+    conv_v2.launches = conv_v2.launches_dx = 0
+    y = conv.conv3x3_halo(x, wt, torch.bfloat16)
+    y.backward(torch.ones_like(y))
+    torch.cuda.synchronize()
+    assert (conv_v2.launches, conv_v2.launches_dx) == (2, 1)
+    assert x.grad.shape == x.shape and wt.grad.shape == wt.shape
+    with pytest.raises(ValueError, match="bf16"):
+        conv_v2.launch_kernel(x.detach().contiguous(
+            memory_format=torch.channels_last), conv.tap_major(wt, torch.float32))
+    with pytest.raises(ValueError, match="channels_last"):
+        conv_v2.launch_kernel(x.detach().to(torch.bfloat16),
+                              conv.tap_major(wt, torch.bfloat16))
 
 
 # the ladder: max |kernel - plain| / max |plain|; the same fp32 expressions,

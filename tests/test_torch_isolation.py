@@ -1,8 +1,10 @@
 """The port stands alone: no source of it (nor ``chip_smoke.py``) imports
-JAX, flax, optax or the JAX package; it imports with those blocked; the
-flagship snapshot fills every port parameter; the CDF 9/7 + factorized
-config builds at full width; and its entry points (eval step, train step,
-agent, CLI) do not fall back to the CPU on their own."""
+JAX, flax, optax or the JAX package, the coding modules included; it
+imports with those blocked; its copies of the host C++ equal the JAX
+package's byte for byte; the flagship snapshot fills every port parameter;
+the CDF 9/7 + factorized config builds at full width; and its entry points
+(eval step, train step, agent, CLI, codec coder) do not fall back to the
+CPU on their own."""
 
 import ast
 import os
@@ -14,6 +16,8 @@ import torch
 
 from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch import (
     cli, config)
+from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.coding import (
+    codec_coder)
 from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.models.codec import (
     CodecWrapper)
 from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.tools import (
@@ -82,7 +86,28 @@ print("ok")
 def test_kernel_sources_are_in_the_package():
     csrc = os.path.join(ROOT, PORT, "csrc")
     assert sorted(f for f in os.listdir(csrc) if f.endswith(".cu")) == [
-        "conv3x3_halo.cu", "lift97.cu"]
+        "conv3x3_halo.cu", "conv_v2.cu", "lift97.cu"]
+
+
+@pytest.mark.parametrize("name", ["rans_core.h", "rans.cpp",
+                                  "wavefront_ctx.cpp"])
+def test_host_coding_sources_are_copies_of_the_jax_packages(name):
+    """The port builds its own copies of the host C++; they must not drift
+    from the JAX package's, or the two packages' streams part."""
+    jax_src = os.path.join(ROOT, BANNED[-1], "coding", "csrc", name)
+    with open(os.path.join(ROOT, PORT, "csrc", name), "rb") as a, \
+            open(jax_src, "rb") as b:
+        assert a.read() == b.read()
+
+
+def test_codec_coder_needs_cuda_unless_cpu_is_asked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = config.flagship_config(dwtlevels=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        codec_coder.CodecCoder(cfg, CodecWrapper(cfg))
+    coder = codec_coder.CodecCoder(cfg, CodecWrapper(cfg), device="cpu")
+    assert coder.device.type == "cpu"
+    assert next(coder.model.parameters()).device.type == "cpu"
 
 
 def test_snapshot_fills_every_parameter():
