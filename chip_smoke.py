@@ -27,7 +27,10 @@ exit code and no result line:
            Function's forward, dx and dk in bf16 at every training shape, and
            forward at ``scripts/bench_pallas_v2.py``'s three shapes; per
            shape its time, TFLOP/s, the bound, the plain version's time,
-           cuDNN's bf16 ``F.conv2d`` and kernel 1's bf16 time;
+           cuDNN's bf16 ``F.conv2d``, kernel 1's bf16 time, the wrapper's
+           operand copies alone (``pad_ms``), the launch plan (N tile,
+           stages, dynamic shared memory) and the kernel's registers and
+           spills from the build log;
 6. parity  the flagship codec in fp32 on one 256x256 image, on the card and
            on the CPU (plain versions), with the committed lambda=2000
            weights: loss, mse, rates and xhat must agree;
@@ -63,11 +66,13 @@ exit code and no result line:
            are held to the JAX package's on the same snapshot and images
            (``results/port_bitstream_targets.json``); the means beside
            ``results/rd_flagship.json``'s; seconds per image split into the
-           transforms on the card and the host's coding;
+           transforms on the card and the host's coding; one image's
+           transforms profiled (device busy time, largest device ops);
 13. bitstream_bf16  the same 19 images with bf16 operands (conv_v2 in the
            analysis and synthesis): lossless, each image close to the fp32
            pass, 120 conv_v2 launches an image (60 in the analysis, 60 in
-           the synthesis); then two Kodak-size images (512x768) timed:
+           the synthesis), one image's transforms profiled as in fp32;
+           then two Kodak-size images (512x768) timed:
            s/image, coded MP/s, card and host.
 
 Then the CDF 9/7 + factorized codec (``configs/cdf97_factorized.json`` at
@@ -484,14 +489,55 @@ def conv_bound(n, cin, cout):
     return max(t_ops, t_bytes), t_ops, t_bytes
 
 
+def kernel_resources(build_log):
+    """{(N tile, segments): {"registers", "spill_bytes"}} of each conv_v2
+    kernel instantiation, read off ptxas's ``-v`` lines (empty where this
+    process found the library already built)."""
+    import re
+    res, key = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            k = re.search(r"conv_v2_kernelILi(\d+)ELi(\d+)E", m.group(1))
+            key = (int(k.group(1)), int(k.group(2))) if k else None
+            if key:
+                res[key] = {}
+            continue
+        if key is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            res[key]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            res[key]["registers"] = int(m.group(1))
+    return res
+
+
+def plan_fields(v2, resources, b, h, w, cin, cout, prefix=""):
+    """A launch's plan (N tile, stages, dynamic shared memory) and its
+    kernel's registers and spills, as row fields."""
+    plan = v2.launch_plan(b, h, w, cin, cout)
+    got = resources.get((plan.n_tile, plan.segments), {})
+    return plan, {f"{prefix}n_tile": plan.n_tile,
+                  f"{prefix}stages": plan.stages,
+                  f"{prefix}smem_bytes": plan.smem_bytes,
+                  f"{prefix}registers": got.get("registers"),
+                  f"{prefix}spill_bytes": got.get("spill_bytes")}
+
+
 def phase_conv_v2_kernel(torch, F, conv, v2, cfg, k1_rows, k1_bwd_rows):
     """Kernel 4 (conv_v2) against ``conv_v2_plain``: forward at every
     eval-path shape (B=8 512x768), the bf16 conv Function's forward, dx and
     dk at every training shape (B=8 256x256), forward at
     ``bench_pallas_v2.py``'s shapes; returns per-shape rows. Kernel 1's
     bf16 times at the same shapes come from ``k1_rows``/``k1_bwd_rows``
-    (the same call)."""
+    (the same call). Each row also has the wrapper's operand copies timed
+    alone (``pad_ms``: ``padded_operands``, part of ``ms``), the launch
+    plan and the kernel's registers and spills from the build log."""
     rows = []
+    resources = kernel_resources(v2.LIBRARY.build_log)
     cl = torch.channels_last
     bf16 = torch.bfloat16
     gen = torch.Generator(device=DEV).manual_seed(4)
@@ -518,6 +564,8 @@ def phase_conv_v2_kernel(torch, F, conv, v2, cfg, k1_rows, k1_bwd_rows):
                 raise AssertionError(f"conv_v2 {(b, cin, h, w)}->{cout}: "
                                      f"error {rel:.3e} > {KERNEL_TOL}")
             ms = time_ms(lambda: v2.launch_kernel(xl, w9), torch)
+            plan, fields = plan_fields(v2, resources, b, h, w, cin, cout)
+            pad_ms = time_ms(lambda: v2.padded_operands(xl, w9, plan), torch)
             plain_ms = time_ms(lambda: v2.conv_v2_plain(x, wt), torch)
             lib_ms = time_ms(lambda: F.conv2d(xl, wl, padding=1), torch)
             key = ((b, cin, h, w), cout)
@@ -528,7 +576,8 @@ def phase_conv_v2_kernel(torch, F, conv, v2, cfg, k1_rows, k1_bwd_rows):
         row = {"phase": "conv_v2_kernel", "path": path, "x": [b, cin, h, w],
                "cout": cout, "launches_per_step": per_step,
                "max_abs_err": abs_err, "max_rel_err": rel, "ms": ms,
-               "tflops": flops / ms / 1e9, "plain_ms": plain_ms,
+               "tflops": flops / ms / 1e9, "pad_ms": pad_ms, **fields,
+               "plain_ms": plain_ms,
                "library_ms": lib_ms, "conv3x3_halo_bf16_ms": k1_ms,
                "bound_ms": bound, "ops_ms": t_ops, "bytes_ms": t_bytes,
                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -580,6 +629,11 @@ def phase_conv_v2_kernel(torch, F, conv, v2, cfg, k1_rows, k1_bwd_rows):
             t = lambda fn: time_ms(fn, torch, min_ms=50.0)  # noqa: E731
             dx_ms = t(lambda: v2.launch_kernel(dyl, w9_dx))
             fwd_ms = t(lambda: v2.launch_kernel(xl, w9))
+            plan, fields = plan_fields(v2, resources, b, h, w, cin, cout)
+            dx_plan, dx_fields = plan_fields(v2, resources, b, h, w, cout,
+                                             cin, "dx_")
+            pad_ms = t(lambda: v2.padded_operands(xl, w9, plan))
+            dx_pad_ms = t(lambda: v2.padded_operands(dyl, w9_dx, dx_plan))
             plain_ms = t(lambda: v2.conv_v2_plain(dy, conv.flip_swap(wt)))
             lib_dx_ms = t(lambda: torch.nn.grad.conv2d_input(
                 xl.shape, wl, dyl, padding=1))
@@ -593,6 +647,8 @@ def phase_conv_v2_kernel(torch, F, conv, v2, cfg, k1_rows, k1_bwd_rows):
                "fwd_max_abs_err": fwd_abs, "fwd_max_rel_err": fwd_rel,
                "dx_max_abs_err": dx_abs, "dx_max_rel_err": dx_rel,
                "dk_max_rel_err": dk_rel, "fwd_ms": fwd_ms, "dx_ms": dx_ms,
+               "pad_ms": pad_ms, "dx_pad_ms": dx_pad_ms, **fields,
+               **dx_fields,
                "dx_plain_ms": plain_ms, "dx_library_ms": lib_dx_ms,
                "conv3x3_halo_bf16_fwd_ms": k1r["fwd_ms"],
                "conv3x3_halo_bf16_dx_ms": k1r["dx_ms"],
@@ -1009,6 +1065,27 @@ def mean(rows, key, skip=0):
     return sum(vals) / len(vals)
 
 
+def profile_transforms(torch, np, pkg, coder, image, name):
+    """One image's transforms on the card as the coder runs them (the three
+    planes' analysis, then their synthesis from the rounded subbands): the
+    host clock around them, then the same work under torch.profiler, its
+    device busy time and largest device ops."""
+    x = torch.from_numpy(image).permute(2, 0, 1)[None].float().div(255.0)
+
+    def run():
+        ycbcr = pkg.color.shift_ycbcr(pkg.color.rgb_to_ycbcr(x.to(DEV)))
+        subbands = [coder.analysis(p, ycbcr[:, p:p + 1]) for p in range(3)]
+        for p, (xe, xo) in enumerate(subbands):
+            coder.synthesis(p, np.round(xe), [np.round(t) for t in xo])
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    phase_profile(torch, run, (time.perf_counter() - t0) * 1e3, name)
+
+
 def phase_bitstream(torch, np, pkg, counts):
     """The flagship's real bitstream in fp32 with the lambda=2000 weights
     over the 19 dead-leaves images of the held-out set, against the JAX
@@ -1020,6 +1097,7 @@ def phase_bitstream(torch, np, pkg, counts):
     rows = code_images(torch, pkg, counts, coder, images,
                        launches_of(conv=2 * coding_conv_launches(cfg)),
                        "bitstream")
+    profile_transforms(torch, np, pkg, coder, images[0], "bitstream_profile")
     with open(TARGETS) as fh:
         targets = json.load(fh)["per_image"]
     with open(RD_FLAGSHIP) as fh:
@@ -1092,6 +1170,8 @@ def phase_bitstream_bf16(torch, np, pkg, counts, fp32_rows):
         coder.synthesis(p, np.round(xe), [np.round(t) for t in xo])
     torch.cuda.synchronize()
     expect_launches(counts.read(), half, "bitstream_bf16 synthesis")
+    profile_transforms(torch, np, pkg, coder, images[0],
+                       "bitstream_bf16_profile")
     kodak = np.stack(pkg.data.synthetic_natural_images(KODAK_IMAGES, W,
                                                        seed=0))[:, :H]
     big = code_images(torch, pkg, counts, coder, kodak, want,
@@ -1639,6 +1719,7 @@ def kernel_entries(conv, v2, lift97, rows, bwd_rows, v2_rows, lift_rows,
                            + [r["fwd_max_abs_err"] for r in v2_train]
                            + [r["dx_max_abs_err"] for r in v2_train]),
         "dtype": "bfloat16", "ms": per(v2_eval, "ms"),
+        "pad_ms": per(v2_eval, "pad_ms"),
         "plain_ms": per(v2_eval, "plain_ms"),
         "bound_ms": per(v2_eval, "bound_ms"), "bound_by": bound_by(v2_eval),
         "library_ms": per(v2_eval, "library_ms"),
@@ -1699,7 +1780,8 @@ def main() -> int:
           "libraries": [{
               "source": os.path.relpath(m.SOURCE, HERE),
               "ptxas": [ln.strip() for ln in m.LIBRARY.build_log.splitlines()
-                        if "registers" in ln or "spill" in ln]}
+                        if any(k in ln for k in ("registers", "spill",
+                                                 "wgmma", "setmaxnreg"))]}
               for m in kernels] + [{
               "source": os.path.relpath(lib.source, HERE),
               "g++_flags": lib.flags_used}
@@ -1792,13 +1874,16 @@ def main() -> int:
           "launches": sum(r["launches_per_step"] for r in v2_eval),
           "tflop": sum(r["gflop"] * r["launches_per_step"] for r in v2_eval)
           / 1e3,
-          "ms": per_step("ms", v2_eval), "plain_ms": per_step("plain_ms", v2_eval),
+          "ms": per_step("ms", v2_eval), "pad_ms": per_step("pad_ms", v2_eval),
+          "plain_ms": per_step("plain_ms", v2_eval),
           "library_ms": per_step("library_ms", v2_eval),
           "bound_ms": per_step("bound_ms", v2_eval),
           "conv3x3_halo_bf16_ms": per_step("conv3x3_halo_bf16_ms", v2_eval),
           "share_of_step": per_step("ms", v2_eval) / main_res["ms_per_step"],
           "train_step_fwd_ms": per_step("fwd_ms", v2_train),
           "train_step_dx_ms": per_step("dx_ms", v2_train),
+          "train_step_pad_ms": per_step("pad_ms", v2_train)
+          + per_step("dx_pad_ms", v2_train),
           "train_step_dx_library_ms": per_step("dx_library_ms", v2_train),
           "train_step_dx_bound_ms": per_step("dx_bound_ms", v2_train),
           "train_step_share": (per_step("fwd_ms", v2_train)

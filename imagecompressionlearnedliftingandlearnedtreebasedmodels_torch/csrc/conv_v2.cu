@@ -1,5 +1,5 @@
-// SAME 3x3 convolution as one implicit GEMM on the tensor cores: bf16
-// operands, fp32 sums, NHWC in, NHWC fp32 out, zero padding.
+// SAME 3x3 convolution as one implicit GEMM on Hopper's tensor cores: bf16
+// operands, fp32 sums, NHWC in, NHWC fp32 out, zero padding, no bias.
 //
 // Replaces the Pallas TPU kernel of scripts/bench_pallas_v2.py::conv_v2
 // (body _kernel_v2): the nine tap windows concatenated along channels and
@@ -7,8 +7,8 @@
 // K = 9*Cin, bf16 operands, fp32 accumulation.
 //
 // The product here: M = B*H*W output pixels, N = Cout, K = 9*Cin, walked as
-// 9 taps x Cin chunks of 16. y[b,h,w,o] = sum_{du,dv,c} x[b,h+du-1,w+dv-1,c]
-// * w[3*du+dv, c, o].
+// K steps of 16 input channels, each of 9 taps. y[b,h,w,o] =
+// sum_{du,dv,c} x[b,h+du-1,w+dv-1,c] * w[3*du+dv, c, o].
 //
 // Bound on an H100 SXM: per output pixel 2*9*Cin*Cout flops against
 // 2*Cin + 4*Cout bytes (bf16 in, fp32 out). At the flagship's wide shapes
@@ -17,172 +17,415 @@
 // least time is the flops over 989 TFLOP/s. The narrow ends (3->96, 96->3,
 // 1->32, 32->1) are bound by bytes (over 3.35 TB/s).
 //
-// Design, simple and right first. The wrapper (ops/conv_v2.py) hands the
-// kernel channels padded with zeros to a multiple of 16 (Cp) and the weight
-// zero-padded to (9, Cp, Coutp), Coutp a multiple of the block's Cout tile,
-// so every K step is whole and every staging load is one unmasked 16-byte
-// vector but at the image border. One block of 8 warps owns a tile of
-// TH x TW = 8 x 32 output pixels of one image and BN output channels: 64,
-// or 32 where that pads Cout less (96 -> 96, not 128), or 16 where
-// Cout <= 16 (the narrow 96->3 and 32->1 layers). For each chunk
-// of 16 input channels it stages in shared memory the (TH+2) x (TW+2) halo
-// of the chunk (zero past the image border, which gives the SAME padding)
-// and the chunk's 9 x 16 x BN weights. Each warp owns two 16-pixel row
-// segments of the tile (rows r and r+4) and runs, for each of the 9 taps,
-// one nvcuda::wmma 16x16x16 bf16 product per segment and 16 output
-// channels into fp32 accumulator fragments: the tap shifts the A operand's
-// start inside the halo tile (pixels are 32 bytes apart there, so every
-// start is 32-byte aligned and the leading dimension is 16 bf16 values).
-// Each fragment goes out through a 16x16 staging square of its warp,
-// masked at ragged H, W and Cout. Two blocks fit on an SM (at most 128
-// registers a thread), so one block's staging overlaps another's products.
+// Design. wgmma (the only way to the tensor cores' full rate) fed by a ring
+// of shared-memory stages that one producer thread fills with TMA and bulk
+// copies, completion signalled on mbarriers:
 //
-// What this design leaves on the table: loads are synchronous (no cp.async
-// or TMA pipeline), every warp reloads the B fragments, mma.sync/wmma is not
-// wgmma, and narrow Cin (1, 3) fills 1-3 of 16 K lanes. The fast form is a
-// wgmma kernel fed by a TMA ring of halo tiles.
+// - A block owns TH = 2*MS output rows x 64 columns of one image and an N
+//   tile of output channels (all of Cout where one tile of at most 248
+//   holds it, so each halo tile is staged once per pixel tile). Two
+//   consumer warpgroups each run MS row segments of 64 pixels (wgmma's M);
+//   a third warpgroup is the producer (setmaxnreg moves its registers to
+//   the consumers where the accumulators are large).
+// - A stage holds one K step: the (TH+2) x 66 halo of 16 input channels as
+//   two planes of 8 channels, [c8][halo row][halo col][8 ch], 16 bytes a
+//   pixel, and the step's weights, [c8][tap][n][8 ch]. In wgmma's
+//   no-swizzle K-major form a core matrix is 8 rows x 16 bytes: here 8
+//   consecutive pixels (or outputs) x 8 channels, 128 contiguous bytes. So
+//   the A operand of tap (du, dv) for tile row r is the same staged halo
+//   read from plane + ((r+du)*66 + dv)*16 bytes: the tap is a descriptor
+//   offset and no data moves (what the Pallas kernel's concatenation of
+//   tap windows means). Descriptors: SBO = 128 bytes (the next 8 rows),
+//   LBO = the plane's size (the next 8 channels of K).
+// - The halo comes from a 4-D TMA tensor map over x (C, W, H, B) with a box
+//   of (8, 66, TH+2, 1) at start (c, w0-1, h0-1, b): TMA fills what lies
+//   outside the image with zeros, which is the SAME padding, and what lies
+//   past Cin in the last K step. The weights are laid out by the wrapper
+//   (ops/conv_v2.py) in the stage's order, K-major as wgmma's canonical B
+//   takes them with no transpose flag, one contiguous block per K step and
+//   N tile: one bulk copy each.
+// - Full/empty mbarriers per stage; each warpgroup keeps one wgmma group in
+//   flight and releases a stage when the group that read it completes.
+// - Epilogue: the accumulators go to shared memory (the ring, no longer
+//   read), then out with coalesced stores: with one N tile a row segment's
+//   output is one contiguous run of 64*Cout floats, written as float4
+//   where Cout (1, 3, 243) leaves it unaligned only at its ends.
+//
+// What this design leaves on the table: one block an SM for the wide tiles
+// (no overlap of a tile's epilogue with the next tile's loads; a persistent
+// grid would give it), every pixel tile restages the step's weights from
+// L2 (a cluster multicast would share them), and narrow Cin (1, 3) fills
+// 1-3 of 16 K lanes (packing taps x channels into K would not).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
+
+#include <cstdint>
+
+#include "wgmma_bf16.cuh"
 
 namespace {
 
-using namespace nvcuda;
+constexpr int SEG = 64;          // output pixels of a row segment (M)
+constexpr int HC = SEG + 2;      // halo tile columns
+constexpr int CONSUMERS = 2;     // consumer warpgroups
+constexpr int THREADS = 128 * (CONSUMERS + 1);
+constexpr int HEAD = 256;        // alignment slack and the mbarriers
+constexpr int SMEM_MAX = 232448;
 
-constexpr int TH = 8;             // output rows per block
-constexpr int TW = 32;            // output columns per block
-constexpr int KC = 16;            // input channels per K step (wmma depth)
-constexpr int HR = TH + 2;        // halo tile rows
-constexpr int HC = TW + 2;        // halo tile columns
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int MF = TH * TW / 16 / WARPS;  // 16-pixel segments per warp (2)
-constexpr int LDS = 20;           // a warp's output staging square stride
+__host__ __device__ constexpr int round_up(int n, int m) {
+  return (n + m - 1) / m * m;
+}
+__host__ __device__ constexpr int halo_plane_bytes(int th) {
+  return round_up((th + 2) * HC * 16, 128);
+}
+__host__ __device__ constexpr int stage_bytes(int n, int th) {
+  return 2 * halo_plane_bytes(th) + 2 * 9 * n * 16;
+}
+__host__ __device__ constexpr int epi_seg_bytes(int n) {
+  return SEG * n * 4 + 16;
+}
+constexpr int smem_needed(int n, int ms, int stages) {
+  return HEAD + (stages * stage_bytes(n, CONSUMERS * ms) >
+                         CONSUMERS * ms * epi_seg_bytes(n)
+                     ? stages * stage_bytes(n, CONSUMERS * ms)
+                     : CONSUMERS * ms * epi_seg_bytes(n));
+}
 
-// x: (B, H, W, Cp) bf16, Cp % 16 == 0; w: (9, Cp, Coutp) bf16, tap
-// t = 3*du + dv, Coutp % BN == 0; y: (B, H, W, Cout) fp32.
-// Grid: (tiles_h * tiles_w, Coutp / BN, B). BN = 16 * NF.
-template <int NF>
-__global__ void __launch_bounds__(THREADS, 2)
-conv_v2_kernel(const __nv_bfloat16* __restrict__ x,
-               const __nv_bfloat16* __restrict__ w, float* __restrict__ y,
-               int H, int W, int Cp, int Cout, int Coutp, int tiles_w) {
-  constexpr int BN = 16 * NF;      // output channels per block
-  constexpr int LDB = BN + 8;      // weight row stride (bf16), multiple of 8
-  __shared__ __align__(128) __nv_bfloat16 xs[HR * HC * KC];
-  __shared__ __align__(128) __nv_bfloat16 ws[9 * KC * LDB];
-  __shared__ __align__(128) float st[WARPS][16 * LDS];
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Wait for the completion of the barrier's phase of this parity. Built
+// with -DCONV_V2_WATCHDOG, a wait of more than 2^33 clocks (seconds) traps,
+// so that a fault in the ring ends the launch with an error, not a hang.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+#ifdef CONV_V2_WATCHDOG
+  const long long start = clock64();
+#endif
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+#ifdef CONV_V2_WATCHDOG
+    if (!done && clock64() - start > (1ll << 33)) __trap();
+#endif
+  }
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor, no swizzle (layout type 0):
+// start address, LBO (the next core matrix along K) and SBO (the next 8
+// rows of M or N), each in 16-byte units.
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int PENDING>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(PENDING)
+               : "memory");
+}
+
+// Keep the compiler from moving accumulator reads or writes across the
+// asynchronous products that own them.
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// x map: (Cp, W, H, B) bf16, box (8, 66, TH+2, 1); wq: the wrapper's
+// (chunks, n_tiles, 2, 9, N, 8) weight; y: (B, H, W, Cout) fp32.
+// Grid: (tiles_h * tiles_w, n_tiles, B).
+template <int N, int MS>
+__global__ void __launch_bounds__(THREADS, N <= 16 ? 2 : 1)
+    conv_v2_kernel(const __grid_constant__ CUtensorMap xmap,
+                   const __nv_bfloat16* __restrict__ wq,
+                   float* __restrict__ y, int H, int W, int Cout, int chunks,
+                   int stages, int n_tiles, int tiles_w) {
+  constexpr int TH = CONSUMERS * MS;
+  constexpr int HALO = halo_plane_bytes(TH);
+  constexpr int WB = 2 * 9 * N * 16;             // one step's weights
+  constexpr int STAGE = 2 * HALO + WB;
+  constexpr uint32_t TX = 2 * (TH + 2) * HC * 16 + WB;  // bytes a stage gets
+  constexpr int EPI = epi_seg_bytes(N);
+  constexpr bool WIDE = N > 16;                  // one block an SM
+
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~uintptr_t(127));
+  const uint32_t bars = smem_u32(base);          // full[s], then empty[s]
+  uint8_t* ring = base + 128;
+  const uint32_t ring_u = smem_u32(ring);
 
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
+  const int wg = tid / 128;
+  const int b = blockIdx.z;
   const int h0 = (blockIdx.x / tiles_w) * TH;
-  const int w0 = (blockIdx.x % tiles_w) * TW;
-  const int co0 = blockIdx.y * BN;
-  const __nv_bfloat16* xb = x + (size_t)blockIdx.z * H * W * Cp;
-  const int wr = warp / (TW / 16);          // first tile row of this warp
-  const int wc = (warp % (TW / 16)) * 16;   // and its first column
+  const int w0 = (blockIdx.x % tiles_w) * SEG;
+  const int nt = blockIdx.y;
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[MF][NF];
-#pragma unroll
-  for (int m = 0; m < MF; ++m)
-#pragma unroll
-    for (int j = 0; j < NF; ++j) wmma::fill_fragment(acc[m][j], 0.f);
-
-  for (int c0 = 0; c0 < Cp; c0 += KC) {
-    for (int e = tid; e < HR * HC * 2; e += THREADS) {
-      const int pix = e >> 1;
-      const int hh = h0 - 1 + pix / HC;
-      const int ww = w0 - 1 + pix % HC;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (hh >= 0 && hh < H && ww >= 0 && ww < W)
-        v = *reinterpret_cast<const uint4*>(
-            xb + ((size_t)hh * W + ww) * Cp + c0 + (e & 1) * 8);
-      *reinterpret_cast<uint4*>(xs + e * 8) = v;
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(bars + 8 * s, 1);
+      mbar_init(bars + 8 * (stages + s), 4 * CONSUMERS);
     }
-    for (int e = tid; e < 9 * KC * BN / 8; e += THREADS) {
-      const int n8 = e % (BN / 8);
-      const int row = e / (BN / 8);           // t * KC + k
-      const int t = row / KC;
-      const int k = row % KC;
-      *reinterpret_cast<uint4*>(ws + row * LDB + n8 * 8) =
-          *reinterpret_cast<const uint4*>(
-              w + ((size_t)t * Cp + c0 + k) * Coutp + co0 + n8 * 8);
-    }
-    __syncthreads();
-
-#pragma unroll 1
-    for (int t = 0; t < 9; ++t) {
-      const int du = t / 3;
-      const int dv = t % 3;
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> a[MF];
-#pragma unroll
-      for (int m = 0; m < MF; ++m)
-        // 16 consecutive pixels of halo row (tile row + du) from column
-        // wc + dv: row i of A is pixel i, its 16 channels contiguous
-        wmma::load_matrix_sync(
-            a[m], xs + ((wr + m * (TH / MF) + du) * HC + wc + dv) * KC, KC);
-#pragma unroll
-      for (int j = 0; j < NF; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> bw;
-        wmma::load_matrix_sync(bw, ws + t * KC * LDB + j * 16, LDB);
-#pragma unroll
-        for (int m = 0; m < MF; ++m) wmma::mma_sync(acc[m][j], a[m], bw,
-                                                    acc[m][j]);
-      }
-    }
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  float* sq = st[warp];
-#pragma unroll
-  for (int m = 0; m < MF; ++m) {
-    const int hh = h0 + wr + m * (TH / MF);
-#pragma unroll
-    for (int j = 0; j < NF; ++j) {
-      wmma::store_matrix_sync(sq, acc[m][j], LDS, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int ww = w0 + wc + e / 16;
-        const int co = co0 + j * 16 + e % 16;
-        if (hh < H && ww < W && co < Cout)
-          y[(((size_t)blockIdx.z * H + hh) * W + ww) * Cout + co] =
-              sq[(e / 16) * LDS + e % 16];
+  if (wg == CONSUMERS) {
+    // producer: one thread keeps the ring full
+    if constexpr (WIDE) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == CONSUMERS * 128) {
+      const char* wsrc = reinterpret_cast<const char*>(wq) + (size_t)nt * WB;
+      for (int k = 0; k < chunks; ++k) {
+        const int s = k % stages;
+        if (k >= stages)
+          mbar_wait(bars + 8 * (stages + s), ((k / stages) - 1) & 1);
+        const uint32_t full = bars + 8 * s;
+        const uint32_t st = ring_u + s * STAGE;
+        mbar_expect_tx(full, TX);
+        tma_load_4d(st, &xmap, full, 16 * k, w0 - 1, h0 - 1, b);
+        tma_load_4d(st + HALO, &xmap, full, 16 * k + 8, w0 - 1, h0 - 1, b);
+        bulk_load(st + 2 * HALO, wsrc + (size_t)k * n_tiles * WB, WB, full);
       }
-      __syncwarp();
+    }
+  } else {
+    if constexpr (WIDE) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int r0 = wg * MS;                      // first tile row
+    float acc[MS][N / 2];
+#pragma unroll
+    for (int m = 0; m < MS; ++m) {
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) acc[m][i] = 0.f;
+      fence_regs(acc[m]);
+    }
+    for (int k = 0; k < chunks; ++k) {
+      const int s = k % stages;
+      mbar_wait(bars + 8 * s, (k / stages) & 1);
+      const uint32_t st = ring_u + s * STAGE;
+      wgmma_fence();
+#pragma unroll
+      for (int t = 0; t < 9; ++t) {
+        const uint64_t bd = desc(st + 2 * HALO + t * N * 16, 9 * N * 16, 128);
+#pragma unroll
+        for (int m = 0; m < MS; ++m) {
+          const uint64_t ad =
+              desc(st + ((r0 + m + t / 3) * HC + t % 3) * 16, HALO, 128);
+          wgmma_bf16<N>(acc[m], ad, bd);
+        }
+      }
+      wgmma_commit();
+      if (k > 0) {
+        // the group of step k-1 is done: its stage may be refilled
+        wgmma_wait<1>();
+        if (tid % 32 == 0) mbar_arrive(bars + 8 * (stages + (k - 1) % stages));
+      }
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int m = 0; m < MS; ++m) fence_regs(acc[m]);
+
+    // epilogue: both warpgroups are done with the ring; stage the tile
+    asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS * 128) : "memory");
+    const int lane = tid % 32;
+    const int warp = (tid % 128) / 32;
+    const int n0 = nt * N;
+    const int nvalid = min(N, Cout - n0);
+    const bool whole = nvalid == Cout;           // one N tile: contiguous
+    float* ep = reinterpret_cast<float*>(ring + wg * MS * EPI);
+    long long g0[MS];
+#pragma unroll
+    for (int m = 0; m < MS; ++m) {
+      g0[m] = ((static_cast<long long>(b) * H + h0 + r0 + m) * W + w0) * Cout +
+              n0;
+      float* seg = ep + m * (EPI / 4) + (whole ? int(g0[m] & 3) : 0);
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) {
+        const int row = 16 * warp + lane / 4 + 8 * ((i >> 1) & 1);
+        const int col = 8 * (i >> 2) + 2 * (lane % 4) + (i & 1);
+        if (col < nvalid) seg[row * nvalid + col] = acc[m][i];
+      }
+    }
+    asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
+    const int t = tid % 128;
+    const int npix = min(SEG, W - w0);
+#pragma unroll
+    for (int m = 0; m < MS; ++m) {
+      if (h0 + r0 + m >= H) continue;
+      const int count = npix * nvalid;
+      float* dst = y + g0[m];
+      if (whole) {
+        const int off = int(g0[m] & 3);
+        const float* seg = ep + m * (EPI / 4) + off;
+        const int head = min((4 - off) & 3, count);
+        const int nvec = (count - head) / 4;
+        if (t < head) dst[t] = seg[t];
+        const float4* s4 = reinterpret_cast<const float4*>(seg + head);
+        float4* d4 = reinterpret_cast<float4*>(dst + head);
+        for (int j = t; j < nvec; j += 128) d4[j] = s4[j];
+        for (int i = head + 4 * nvec + t; i < count; i += 128) dst[i] = seg[i];
+      } else {
+        const float* seg = ep + m * (EPI / 4);
+        for (int i = t; i < count; i += 128) {
+          const int p = i / nvalid;
+          dst[(long long)p * Cout + (i - p * nvalid)] = seg[i];
+        }
+      }
     }
   }
 }
 
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled, found through the runtime so that
+// the library needs no link against libcuda.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                            cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+template <int N, int MS>
+int launch(const CUtensorMap& xmap, const __nv_bfloat16* wq, float* y, int B,
+           int H, int W, int Cout, int chunks, int stages, int n_tiles,
+           int smem, int grid_x, cudaStream_t s) {
+  constexpr int TH = CONSUMERS * MS;
+  const int tiles_w = (W + SEG - 1) / SEG;
+  if (grid_x != ((H + TH - 1) / TH) * tiles_w ||
+      smem < smem_needed(N, MS, stages))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = conv_v2_kernel<N, MS>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<dim3(grid_x, n_tiles, B), THREADS, smem, s>>>(
+      xmap, wq, y, H, W, Cout, chunks, stages, n_tiles, tiles_w);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// C interface for ctypes: Cp, Coutp and the Cout tile bn (16, 32 or 64)
-// as ops/conv_v2.py pads them (Cp a multiple of 16, Coutp of bn). Returns
-// the cudaError_t of the launch (0 on success, cudaErrorInvalidValue for
-// another tile).
+// C interface for ctypes. The geometry comes from ops/conv_v2.py's
+// launch_plan: Cp (x's channels, a multiple of 8), the N tile and its row
+// segments a warpgroup (one of the pairs below), the N tiles, the K steps
+// (ceil(Cp/16)), the ring's stages, the dynamic shared memory and the
+// grid's pixel tiles; the kernel checks them against its own reckoning.
+// Returns 0, a cudaError_t, or 1000 + the CUresult of a refused tensor map.
 extern "C" int conv_v2_fwd(const void* x, const void* w, void* y, int B,
-                           int H, int W, int Cp, int Cout, int Coutp, int bn,
-                           void* stream) {
+                           int H, int W, int Cp, int Cout, int n_tile,
+                           int segs, int n_tiles, int chunks, int stages,
+                           int smem, int grid_x, void* stream) {
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  if (Cp % 8 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(w) % 16 != 0 ||
+      chunks != (Cp + 15) / 16 || n_tile * n_tiles < Cout ||
+      n_tile * (n_tiles - 1) >= Cout || stages < 1 || stages > chunks ||
+      (stages < 2 && chunks > 1) || smem > SMEM_MAX || n_tiles > 65535 ||
+      B > 65535)
+    return bad;
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const int th = 2 * segs;
+  CUtensorMap xmap;
+  const cuuint64_t dims[4] = {(cuuint64_t)Cp, (cuuint64_t)W, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)Cp * 2, (cuuint64_t)W * Cp * 2,
+                                 (cuuint64_t)H * W * Cp * 2};
+  const cuuint32_t box[4] = {8, (cuuint32_t)HC, (cuuint32_t)(th + 2), 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  CUresult r = encode(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                      const_cast<void*>(x), dims, strides, box, estr,
+                      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                      CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return 1000 + static_cast<int>(r);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* xp = static_cast<const __nv_bfloat16*>(x);
   const auto* wp = static_cast<const __nv_bfloat16*>(w);
   float* out = static_cast<float*>(y);
-  const int tiles_w = (W + TW - 1) / TW;
-  const int tiles_h = (H + TH - 1) / TH;
-  const dim3 grid(tiles_h * tiles_w, Coutp / bn, B);
-  if (bn == 16)
-    conv_v2_kernel<1><<<grid, THREADS, 0, s>>>(xp, wp, out, H, W, Cp, Cout,
-                                               Coutp, tiles_w);
-  else if (bn == 32)
-    conv_v2_kernel<2><<<grid, THREADS, 0, s>>>(xp, wp, out, H, W, Cp, Cout,
-                                               Coutp, tiles_w);
-  else if (bn == 64)
-    conv_v2_kernel<4><<<grid, THREADS, 0, s>>>(xp, wp, out, H, W, Cp, Cout,
-                                               Coutp, tiles_w);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+#define CONV_V2_CASE(n, ms)                                                   \
+  if (n_tile == n && segs == ms)                                              \
+    return launch<n, ms>(xmap, wp, out, B, H, W, Cout, chunks, stages,        \
+                         n_tiles, smem, grid_x, s);
+  CONV_V2_CASE(8, 8)
+  CONV_V2_CASE(16, 4)
+  CONV_V2_CASE(32, 4)
+  CONV_V2_CASE(64, 2)
+  CONV_V2_CASE(96, 2)
+  CONV_V2_CASE(128, 2)
+  CONV_V2_CASE(192, 1)
+  CONV_V2_CASE(248, 1)
+#undef CONV_V2_CASE
+  return bad;
 }

@@ -11,13 +11,13 @@ autograd Function picks it by operand type (``csrc/conv3x3_halo.cu`` keeps
 the fp32 ones).
 
 The kernel (``csrc/conv_v2.cu``, built at first use by :mod:`.nvcc`) runs
-``nvcuda::wmma`` 16x16x16 bf16 products into fp32 accumulators; the
-wrapper pads the channels to a multiple of 16 and the weight to the
-kernel's tiles with zeros (:func:`padded_operands`), which add nothing to
-the sums. Its bound on an H100 SXM is the larger of its operations over
-989 TFLOP/s (bf16 tensor cores) and its bytes (bf16 input and weight read
-once, fp32 output written once) over 3.35 TB/s: operations at the
-flagship's wide shapes, bytes at the narrow ends.
+Hopper's ``wgmma`` on operands that TMA and bulk copies bring into a ring
+of shared-memory stages; :func:`launch_plan` computes its geometry here
+(tiles, stages, grid, shared memory), and :func:`padded_operands` lays the
+operands out for it. Its bound on an H100 SXM is the larger of its
+operations over 989 TFLOP/s (bf16 tensor cores) and its bytes (bf16 input
+and weight read once, fp32 output written once) over 3.35 TB/s: operations
+at the flagship's wide shapes, bytes at the narrow ends.
 
 The module-level ``launches`` counts kernel launches and ``launches_dx``
 those of them made for a dx; a run sets them to 0 and reads them back to
@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -39,10 +40,25 @@ SOURCE = os.path.join(nvcc.CSRC, "conv_v2.cu")
 launches = 0     # kernel launches; callers reset it to 0 before a counted run
 launches_dx = 0  # those of them that computed a dx
 
+# The kernel's fixed geometry (csrc/conv_v2.cu keeps the same constants).
+SEG = 64              # output pixels of one row segment: wgmma's M
+KC = 16               # input channels a K step: wgmma's K for bf16
+CONSUMERS = 2         # consumer warpgroups a block
+THREADS = 128 * (CONSUMERS + 1)   # and one producer warpgroup
+SMEM_MAX = 232_448    # dynamic shared memory a block may have on sm_90
+SMEM_RESERVED = 1024  # what the card keeps for itself of each block's share
+HEAD = 256            # alignment slack and the ring's mbarriers
+MAX_STAGES = 4
+# N tiles the kernel is built for, each with its row segments a consumer
+# warpgroup runs (N/2 * segments fp32 accumulators a thread)
+N_TILES = (8, 16, 32, 64, 96, 128, 192, 248)
+SEGMENTS = {8: 8, 16: 4, 32: 4, 64: 2, 96: 2, 128: 2, 192: 1, 248: 1}
+
 
 def _declare(lib: ctypes.CDLL) -> None:
     fn = lib.conv_v2_fwd
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 12 \
+        + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
 
@@ -50,34 +66,105 @@ def _ceil(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
-def cout_tile(cout: int) -> int:
-    """The kernel's Cout tile: 16 where Cout <= 16, else 64 or 32,
-    whichever pads Cout less (64 on a tie)."""
-    if cout <= 16:
-        return 16
-    return 64 if _ceil(cout, 64) <= _ceil(cout, 32) else 32
+class Plan(NamedTuple):
+    """One launch's geometry. A block computes ``tile_h`` output rows x
+    ``SEG`` columns x ``n_tile`` output channels of one image; the grid is
+    ``grid`` = (pixel tiles, N tiles, batch)."""
+    cin: int
+    cout: int
+    cp: int           # x's channels as the kernel reads them (multiple of 8)
+    chunks: int       # K steps of 16 channels (the last may read past cp)
+    n_tile: int
+    n_tiles: int
+    coutp: int        # n_tile * n_tiles: the weight's padded Cout
+    segments: int     # row segments a consumer warpgroup runs
+    tile_h: int
+    tile_w: int
+    stages: int
+    stage_bytes: int
+    blocks_per_sm: int
+    smem_bytes: int
+    grid: tuple
 
 
-def padded_operands(x: torch.Tensor, wt: torch.Tensor):
-    """The kernel's operands: channels zero-padded to a multiple of 16
-    (every K step whole) and the weight to (9, Cp, Coutp), Coutp a multiple
-    of the kernel's Cout tile, so that every staging load is one aligned
-    16-byte vector. Zero channels add nothing to the sums. x stays as it is
-    where it already fits. Returns (x, weight, Coutp, tile)."""
+def halo_plane_bytes(tile_h: int) -> int:
+    """One 8-channel plane of a staged halo tile: (tile_h + 2) rows of
+    SEG + 2 pixels of 16 bytes, rounded up to 128 bytes."""
+    return _ceil((tile_h + 2) * (SEG + 2) * 16, 128)
+
+
+def stage_bytes(n_tile: int, tile_h: int) -> int:
+    """One ring stage: two halo planes and the weights of one K step (two
+    planes of 9 taps x n_tile x 8 channels)."""
+    return 2 * halo_plane_bytes(tile_h) + 2 * 9 * n_tile * 16
+
+
+def epilogue_bytes(n_tile: int, segments: int) -> int:
+    """The fp32 output tile staged for coalesced stores: one region of
+    SEG x n_tile values (and 16 bytes of alignment slack) per segment."""
+    return CONSUMERS * segments * (SEG * n_tile * 4 + 16)
+
+
+def pick_n_tile(cout: int) -> int:
+    """The N tile: all of Cout where one of ``N_TILES`` holds it (the
+    smallest that does), else Cout split evenly over the fewest tiles of at
+    most 248."""
+    parts = -(-cout // N_TILES[-1])
+    need = _ceil(-(-cout // parts), 8)
+    return next(n for n in N_TILES if n >= need)
+
+
+def launch_plan(b: int, h: int, w: int, cin: int, cout: int,
+                n_tile: int | None = None) -> Plan:
+    """The kernel's geometry for x (b, cin, h, w) -> cout channels.
+    ``n_tile`` overrides :func:`pick_n_tile` (one of ``N_TILES``)."""
+    n_tile = pick_n_tile(cout) if n_tile is None else n_tile
+    if n_tile not in SEGMENTS:
+        raise ValueError(f"conv_v2: no kernel for an N tile of {n_tile}")
+    segs = SEGMENTS[n_tile]
+    tile_h = CONSUMERS * segs
+    cp = _ceil(cin, 8)
+    chunks = -(-cp // KC)
+    n_tiles = -(-cout // n_tile)
+    blocks = 2 if n_tile <= 16 else 1
+    budget = SMEM_MAX if blocks == 1 else \
+        (SMEM_MAX + SMEM_RESERVED) // blocks - SMEM_RESERVED
+    stage = stage_bytes(n_tile, tile_h)
+    stages = min(MAX_STAGES, chunks, (budget - HEAD) // stage)
+    if stages < min(2, chunks):
+        raise ValueError(f"conv_v2: an N tile of {n_tile} leaves no room "
+                         f"for two stages")
+    smem = HEAD + max(stages * stage, epilogue_bytes(n_tile, segs))
+    if blocks == 1:
+        # setmaxnreg hands one block the whole register file: ask for more
+        # than half the SM's shared memory so that no second block is placed
+        smem = max(smem, (SMEM_MAX + SMEM_RESERVED) // 2 + 1)
+    grid = (-(-h // tile_h) * -(-w // SEG), n_tiles, b)
+    return Plan(cin, cout, cp, chunks, n_tile, n_tiles, n_tile * n_tiles,
+                segs, tile_h, SEG, stages, stage, blocks, smem, grid)
+
+
+def padded_operands(x: torch.Tensor, wt: torch.Tensor, plan: Plan):
+    """The kernel's operands. x: channels zero-padded to ``plan.cp`` (a
+    multiple of 8, so that every TMA stride is a multiple of 16 bytes) and
+    16-byte aligned; it stays as it is where it already fits. The weight
+    (9, Cin, Cout) laid out K-major in the order the kernel stages it, one
+    contiguous block per K step and N tile: (chunks, n_tiles, 2, 9,
+    n_tile, 8) = [K step][N tile][8-channel half][tap][output][channel],
+    zero past Cin and Cout. Zero channels add nothing to the sums."""
     b, cin, h, w = x.shape
     cout = wt.shape[2]
-    bn = cout_tile(cout)
-    cp = _ceil(cin, 16)
-    coutp = _ceil(cout, bn)
-    if cp != cin or x.data_ptr() % 16:
-        xp = x.new_zeros((b, h, w, cp)).permute(0, 3, 1, 2)  # channels_last
-        xp[:, :cin].copy_(x)
-        x = xp
-    if (cp, coutp) != (cin, cout) or wt.data_ptr() % 16:
-        wp = wt.new_zeros((9, cp, coutp))
-        wp[:, :cin, :cout].copy_(wt)
-        wt = wp
-    return x, wt, coutp, bn
+    if plan.cp != cin:
+        nhwc = F.pad(x.permute(0, 2, 3, 1), (0, plan.cp - cin))
+        x = nhwc.permute(0, 3, 1, 2)    # channels_last
+    elif x.data_ptr() % 16:
+        x = x.clone(memory_format=torch.channels_last)
+    kp = plan.chunks * KC
+    wpad = F.pad(wt, (0, plan.coutp - cout, 0, kp - cin))  # (9, kp, coutp)
+    wq = wt.new_empty((plan.chunks, plan.n_tiles, 2, 9, plan.n_tile, 8))
+    wq.permute(3, 0, 2, 5, 1, 4).copy_(
+        wpad.view(9, plan.chunks, 2, 8, plan.n_tiles, plan.n_tile))
+    return x, wq
 
 
 LIBRARY = nvcc.Library(SOURCE, _declare)
@@ -95,11 +182,12 @@ def conv_v2_plain(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
                     weight.to(torch.bfloat16).float(), padding=1)
 
 
-def launch_kernel(x: torch.Tensor, wt: torch.Tensor,
-                  dx: bool = False) -> torch.Tensor:
+def launch_kernel(x: torch.Tensor, wt: torch.Tensor, dx: bool = False,
+                  n_tile: int | None = None) -> torch.Tensor:
     """Run the kernel on bf16 NHWC-stored ``x`` (B,Cin,H,W) and tap-major
     bf16 ``wt`` (9,Cin,Cout); returns fp32 (B,Cout,H,W) in channels_last.
-    ``dx`` counts the launch as a dx too."""
+    ``dx`` counts the launch as a dx too; ``n_tile`` overrides the plan's
+    N tile."""
     global launches, launches_dx
     if x.device.type != "cuda" or wt.device != x.device:
         raise ValueError("conv_v2 kernel: x and weight must be on the same "
@@ -119,16 +207,19 @@ def launch_kernel(x: torch.Tensor, wt: torch.Tensor,
     cout = wt.shape[2]
     if min(b, cin, h, w, cout) < 1:
         raise ValueError(f"conv_v2 kernel: empty shape {tuple(x.shape)}")
+    plan = launch_plan(b, h, w, cin, cout, n_tile)
     y = torch.empty((b, cout, h, w), device=x.device, dtype=torch.float32,
                     memory_format=torch.channels_last)
     lib = build()
     with torch.cuda.device(x.device):
-        xp, wp, coutp, bn = padded_operands(x, wt)
+        xp, wq = padded_operands(x, wt, plan)
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.conv_v2_fwd(xp.data_ptr(), wp.data_ptr(), y.data_ptr(),
-                              b, h, w, xp.shape[1], cout, coutp, bn, stream)
+        err = lib.conv_v2_fwd(
+            xp.data_ptr(), wq.data_ptr(), y.data_ptr(), b, h, w, plan.cp,
+            cout, plan.n_tile, plan.segments, plan.n_tiles, plan.chunks,
+            plan.stages, plan.smem_bytes, plan.grid[0], stream)
     if err != 0:
-        raise RuntimeError(f"conv_v2 kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"conv_v2 kernel launch failed: error {err}")
     launches += 1
     if dx:
         launches_dx += 1

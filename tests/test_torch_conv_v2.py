@@ -13,6 +13,7 @@ fp32; the sums of the two sides differ only in order.
 
 import ast
 import functools
+import importlib.util
 import os
 import types
 
@@ -22,8 +23,13 @@ import pytest
 import torch
 from jax.experimental import pallas as jpl
 
+import chip_smoke
+from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch import (
+    config)
 from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.ops import (
     conv3x3_halo as conv, conv_v2)
+from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.tools import (
+    gen_wgmma)
 
 # The suite runs several workers at once, and PyTorch's default of one
 # thread per core in each of them oversubscribes the CPU many times over.
@@ -112,24 +118,153 @@ def test_launcher_refuses_a_cpu_tensor():
 @pytest.mark.parametrize("cin,cout", [(3, 96), (243, 243), (96, 3),
                                       (192, 96), (1, 32)])
 def test_padded_operands_add_nothing(cin, cout):
-    """The kernel's operands: Cin padded to a multiple of 16, the weight to
-    the Cout tile (the smaller padding of 64 or 32, or 16 for Cout <= 16);
+    """The kernel's operands: x's channels padded to a multiple of 8, the
+    weight laid out as (K steps, N tiles, 2, 9, N tile, 8) with zeros past
+    Cin and Cout, the N tile the smallest of the kernel's that holds Cout;
     the conv of the padded operands is the conv (zero channels add exact
     zeros; the CPU conv may sum the longer K in another order: 1e-6)."""
     rng = np.random.RandomState(cin + cout)
     x = torch.from_numpy(rng.randn(2, cin, 5, 7).astype(np.float32)).to(
         torch.bfloat16).contiguous(memory_format=torch.channels_last)
     wt = torch.from_numpy(rng.randn(cout, cin, 3, 3).astype(np.float32))
-    xp, wp, coutp, bn = conv_v2.padded_operands(
-        x, conv.tap_major(wt, torch.bfloat16))
-    cp = xp.shape[1]
-    assert cp % 16 == 0 and coutp % bn == 0 and coutp - cout < bn
-    assert coutp == (16 if cout <= 16 else
-                     min(-(-cout // 64) * 64, -(-cout // 32) * 32))
+    plan = conv_v2.launch_plan(2, 5, 7, cin, cout)
+    xp, wq = conv_v2.padded_operands(x, conv.tap_major(wt, torch.bfloat16),
+                                     plan)
+    cp, kp, coutp = plan.cp, plan.chunks * 16, plan.coutp
+    assert cp % 8 == 0 and cp - cin < 8 and kp >= cp and kp - cp < 16
+    assert plan.n_tiles == 1 and plan.n_tile == min(
+        n for n in conv_v2.N_TILES if n >= cout)
+    assert xp.shape == (2, cp, 5, 7)
     assert xp.is_contiguous(memory_format=torch.channels_last)
-    assert wp.shape == (9, cp, coutp) and wp.is_contiguous()
-    w4 = wp.float().reshape(3, 3, cp, coutp).permute(3, 2, 0, 1)
+    assert wq.shape == (plan.chunks, 1, 2, 9, plan.n_tile, 8)
+    assert wq.is_contiguous()
+    # back to (9, K, Cout) and to a conv weight
+    w9 = wq.permute(3, 0, 2, 5, 1, 4).reshape(9, kp, coutp)
+    w4 = w9.float().reshape(3, 3, kp, coutp).permute(3, 2, 0, 1)[:, :cp]
+    assert torch.equal(w4[:, cin:], torch.zeros_like(w4[:, cin:]))
     got = torch.nn.functional.conv2d(xp.float(), w4, padding=1)
     assert torch.equal(got[:, cout:], torch.zeros_like(got[:, cout:]))
     want = conv_v2.conv_v2_plain(x.float(), wt)
     assert (got[:, :cout] - want).abs().max() <= 1e-6 * want.abs().max()
+
+
+def _card_shapes():
+    path = os.path.join(ROOT, "tests", "test_torch_cuda.py")
+    spec = importlib.util.spec_from_file_location("_torch_cuda_cases", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.V2_SHAPES
+
+
+def _plan_cases():
+    """(b, h, w, cin, cout) of every launch the kernel serves: each 3x3 conv
+    of the B=8 512x768 eval step and of the B=8 256x256 train step with its
+    dx (Cin and Cout swapped), bench_pallas_v2.py's shapes and the card
+    tests' cases, forward and dx."""
+    cfg = config.flagship_config(dtype="bfloat16")
+    cases = set()
+    for size, b in (((chip_smoke.H, chip_smoke.W), chip_smoke.B),
+                    ((chip_smoke.TRAIN_P,) * 2, chip_smoke.TRAIN_B)):
+        for h, w, cin, cout in chip_smoke.conv_shapes(cfg, size):
+            cases.update({(b, h, w, cin, cout), (b, h, w, cout, cin)})
+    for (b, h, w, cin), cout in chip_smoke.BENCH_PALLAS_V2_SHAPES:
+        cases.add((b, h, w, cin, cout))
+    for b, h, w, cin, cout in _card_shapes():
+        cases.update({(b, h, w, cin, cout), (b, h, w, cout, cin)})
+    return sorted(cases)
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout", _plan_cases())
+def test_launch_plan_fits_the_card_and_covers_the_output(b, h, w, cin, cout):
+    """The plan the wrapper hands the kernel: its tiles cover every output
+    pixel and channel exactly once, its shared memory fits a block (two
+    blocks an SM where it plans two), its N tile is one the kernel is built
+    for, and every TMA stride and box is one the card takes."""
+    p = conv_v2.launch_plan(b, h, w, cin, cout)
+    # coverage: block (ty, tx) owns rows ty*tile_h.. and columns tx*64..;
+    # N tile j owns channels j*n_tile..; clipped to the image and Cout
+    tiles_w = -(-w // p.tile_w)
+    assert p.grid == (-(-h // p.tile_h) * tiles_w, p.n_tiles, b)
+    pix = np.zeros((h, w), np.int64)
+    for blk in range(p.grid[0]):
+        r0, c0 = (blk // tiles_w) * p.tile_h, (blk % tiles_w) * p.tile_w
+        pix[r0:r0 + p.tile_h, c0:c0 + p.tile_w] += 1
+    assert (pix == 1).all()
+    ch = np.zeros(cout, np.int64)
+    for j in range(p.n_tiles):
+        ch[j * p.n_tile:(j + 1) * p.n_tile] += 1
+    assert (ch == 1).all() and p.coutp - cout < p.n_tile
+    assert p.tile_w == 64 and p.tile_h == 2 * p.segments
+    # K: whole steps of 16 channels over Cp, Cp the smallest multiple of 8
+    assert p.cp % 8 == 0 and 0 <= p.cp - cin < 8
+    assert p.chunks == -(-p.cp // 16)
+    # the N tile: wgmma's N, a multiple of 8 up to 256, built in the kernel
+    assert p.n_tile % 8 == 0 and 8 <= p.n_tile <= 256
+    assert p.n_tile in conv_v2.N_TILES
+    # shared memory: the ring (at least two stages where there are two K
+    # steps) and the epilogue's staging both fit
+    assert 1 <= p.stages <= min(conv_v2.MAX_STAGES, p.chunks)
+    assert p.stages >= min(2, p.chunks)
+    assert p.stage_bytes == conv_v2.stage_bytes(p.n_tile, p.tile_h)
+    assert p.smem_bytes >= conv_v2.HEAD + p.stages * p.stage_bytes
+    assert p.smem_bytes >= conv_v2.HEAD + conv_v2.epilogue_bytes(
+        p.n_tile, p.segments)
+    assert p.smem_bytes <= conv_v2.SMEM_MAX
+    # blocks an SM: as many as planned fit by shared memory, and a wide
+    # tile's one block (its setmaxnreg takes the whole register file) has
+    # the SM to itself
+    per_block = p.smem_bytes + conv_v2.SMEM_RESERVED
+    sm = conv_v2.SMEM_MAX + conv_v2.SMEM_RESERVED
+    assert p.blocks_per_sm * per_block <= sm
+    assert p.blocks_per_sm == (2 if p.n_tile <= 16 else 1)
+    assert p.blocks_per_sm == 2 or 2 * per_block > sm
+    # TMA: x's map (Cp, W, H, B) in bf16, its strides in bytes multiples of
+    # 16, its box (8, 66, tile_h + 2, 1) at most 256 a dimension and 16
+    # bytes a row; the weight's bulk copy a multiple of 16 bytes
+    strides = (p.cp * 2, w * p.cp * 2, h * w * p.cp * 2)
+    assert all(s % 16 == 0 for s in strides)
+    box = (8, p.tile_w + 2, p.tile_h + 2, 1)
+    assert max(box) <= 256 and box[0] * 2 % 16 == 0
+    assert conv_v2.halo_plane_bytes(p.tile_h) % 128 == 0
+    assert (2 * 9 * p.n_tile * 16) % 128 == 0
+    assert p.grid[1] <= 65535 and p.grid[2] <= 65535
+
+
+def test_wgmma_header_is_what_its_generator_writes():
+    with open(gen_wgmma.HEADER) as fh:
+        assert fh.read() == gen_wgmma.render()
+
+
+def test_build_key_covers_the_included_headers(tmp_path):
+    """An edited header or another flag gives another build; an unchanged
+    source tree the same one."""
+    from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.ops import (
+        nvcc)
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\n#include <cstdint>\n')
+    (tmp_path / "a.cuh").write_text('#include "b.h"\n')
+    (tmp_path / "b.h").write_text("// b\n")
+    src = str(tmp_path / "k.cu")
+    assert nvcc.local_headers(src) == [str(tmp_path / "a.cuh"),
+                                       str(tmp_path / "b.h")]
+    lib = nvcc.Library(src, lambda _: None)
+    key = lib.digest()
+    assert nvcc.Library(src, lambda _: None).digest() == key
+    assert nvcc.Library(src, lambda _: None, flags=("-DX",)).digest() != key
+    (tmp_path / "b.h").write_text("// b, edited\n")
+    assert lib.digest() != key
+
+
+def test_ctypes_declaration_matches_the_c_entry_point():
+    """The argument types the wrapper declares are the C function's: a
+    pointer for each ``void*``, an int for each ``int`` (ctypes passes what
+    it is told, so a missing or extra int shifts every later argument)."""
+    import ctypes
+    import re
+    with open(conv_v2.SOURCE) as fh:
+        src = fh.read()
+    params = re.search(r'extern "C" int conv_v2_fwd\(([^)]*)\)', src).group(1)
+    want = [ctypes.c_void_p if "*" in p else ctypes.c_int
+            for p in params.split(",")]
+    fn = types.SimpleNamespace()
+    conv_v2._declare(types.SimpleNamespace(conv_v2_fwd=fn))
+    assert fn.argtypes == want and fn.restype is ctypes.c_int

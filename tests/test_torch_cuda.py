@@ -122,14 +122,35 @@ V2_SHAPES = [
     (2, 12, 20, 1, 32),     # the LL AE's ends: 1 -> 32
     (1, 11, 18, 32, 1),     # and 32 -> 1
     (1, 8, 32, 3, 243),     # plc's first layer
+    (1, 5, 70, 32, 64),     # W above one 64-pixel segment, ragged
+    (2, 6, 130, 16, 8),     # three segments across, Cout 8 (N tile 8)
+    (1, 1, 40, 96, 192),    # H = 1: every tap row but one is padding
+    (2, 7, 2, 32, 9),       # an image narrower than the halo, Cout 9
+    (1, 9, 20, 64, 200),    # Cout 200 in one N tile of 248
+    (3, 10, 24, 96, 243),   # B = 3, Cout 243 (N tile 248)
+    (1, 6, 20, 16, 300),    # Cout 300: two N tiles of 152 -> 192
 ]
+
+
+def misaligned(t):
+    """``t`` (channels_last) copied into storage that starts 2 bytes past
+    a 16-byte boundary."""
+    b, c, h, w = t.shape
+    buf = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+    out = buf[1:1 + t.numel()].view(b, h, w, c).permute(0, 3, 1, 2)
+    out.copy_(t)
+    assert out.data_ptr() % 16 and out.is_contiguous(
+        memory_format=torch.channels_last)
+    return out
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,h,w,cin,cout", V2_SHAPES)
 def test_conv_v2_matches_plain_forward_and_dx(card, b, h, w, cin, cout):
     """Direct launches: the forward, and dx (the same kernel on the
-    flipped, swapped weight), against ``conv_v2_plain``."""
+    flipped, swapped weight), against ``conv_v2_plain``; then the forward
+    again on an x whose storage is not 16-byte aligned, which must give
+    the same result."""
     rng = np.random.RandomState(cin * cout + h)
     x = torch.from_numpy(rng.randn(b, cin, h, w).astype(np.float32)).to(card)
     wt = torch.from_numpy((rng.randn(cout, cin, 3, 3) / np.sqrt(9 * cin))
@@ -151,6 +172,9 @@ def test_conv_v2_matches_plain_forward_and_dx(card, b, h, w, cin, cout):
         assert g.is_contiguous(memory_format=cl)
         err = (g - want).abs().max().item() / want.abs().max().item()
         assert err < TOL
+    again = conv_v2.launch_kernel(misaligned(x.to(torch.bfloat16).contiguous(
+        memory_format=cl)), conv.tap_major(wt, torch.bfloat16))
+    assert torch.equal(again, got)
 
 
 @pytest.mark.cuda
