@@ -18,32 +18,39 @@
 // 1->32, 32->1) are bound by bytes (over 3.35 TB/s).
 //
 // Design. wgmma (the only way to the tensor cores' full rate) fed by a ring
-// of shared-memory stages that one producer thread fills with TMA and bulk
-// copies, completion signalled on mbarriers:
+// of shared-memory stages that one producer thread fills with TMA,
+// completion signalled on mbarriers:
 //
 // - A block owns TH = 2*MS output rows x 64 columns of one image and an N
-//   tile of output channels (all of Cout where one tile of at most 248
-//   holds it, so each halo tile is staged once per pixel tile). Two
-//   consumer warpgroups each run MS row segments of 64 pixels (wgmma's M);
-//   a third warpgroup is the producer (setmaxnreg moves its registers to
-//   the consumers where the accumulators are large).
-// - A stage holds one K step: the (TH+2) x 66 halo of 16 input channels as
-//   two planes of 8 channels, [c8][halo row][halo col][8 ch], 16 bytes a
-//   pixel, and the step's weights, [c8][tap][n][8 ch]. In wgmma's
-//   no-swizzle K-major form a core matrix is 8 rows x 16 bytes: here 8
-//   consecutive pixels (or outputs) x 8 channels, 128 contiguous bytes. So
-//   the A operand of tap (du, dv) for tile row r is the same staged halo
-//   read from plane + ((r+du)*66 + dv)*16 bytes: the tap is a descriptor
-//   offset and no data moves (what the Pallas kernel's concatenation of
-//   tap windows means). Descriptors: SBO = 128 bytes (the next 8 rows),
-//   LBO = the plane's size (the next 8 channels of K).
+//   tile of output channels: all of Cout where one tile of at most 192
+//   holds it, so each halo tile is staged once per pixel tile; wider Cout
+//   in tiles of 128 (ops/conv_v2.py::pick_n_tile says when). Two consumer
+//   warpgroups each run MS row segments of 64 pixels (wgmma's M); a third
+//   warpgroup is the producer (setmaxnreg moves its registers to the
+//   consumers where the accumulators are large; those plans ask for more
+//   than half the SM's shared memory, so the block has the SM to itself).
+// - A stage holds one K step of 16 input channels: its weights for the 9
+//   taps, then the (TH+2) x 66 halo as two planes of 8 channels,
+//   [c8][halo row][halo col][8 ch], 16 bytes a pixel. In wgmma's no-swizzle
+//   K-major form a core matrix is 8 rows x 16 bytes: here 8 consecutive
+//   pixels x 8 channels, 128 contiguous bytes. So the A operand of tap
+//   (du, dv) for tile row r is the same staged halo read from plane +
+//   ((r+du)*66 + dv)*16 bytes: the tap is a descriptor offset and no data
+//   moves (what the Pallas kernel's concatenation of tap windows means).
+//   A's descriptors: SBO = 128 bytes (the next 8 pixels), LBO = the plane's
+//   size (the next 8 channels of K).
 // - The halo comes from a 4-D TMA tensor map over x (C, W, H, B) with a box
 //   of (8, 66, TH+2, 1) at start (c, w0-1, h0-1, b): TMA fills what lies
 //   outside the image with zeros, which is the SAME padding, and what lies
-//   past Cin in the last K step. The weights are laid out by the wrapper
-//   (ops/conv_v2.py) in the stage's order, K-major as wgmma's canonical B
-//   takes them with no transpose flag, one contiguous block per K step and
-//   N tile: one bulk copy each.
+//   past Cin in the last K step.
+// - The weights come as the caller holds them, tap-major (9, Cin, Cout),
+//   through a 3-D tensor map (Cout, Cin, 9) in boxes of (WC, 16, 9), WC
+//   = 64 outputs with the 128-byte swizzle where the N tile is a multiple
+//   of 64 or above 192, else 32 with the 64-byte swizzle: B is N-major
+//   (Cout contiguous), which wgmma reads with its transpose flag for
+//   16-bit types, so no copy lays the weight out anew on each call. B's
+//   descriptors: tap t at 16 rows of 2*WC bytes a box, SBO = 8 rows (the
+//   next 8 rows of K), LBO = one box (the next WC outputs).
 // - Full/empty mbarriers per stage; each warpgroup keeps one wgmma group in
 //   flight and releases a stage when the group that read it completes.
 // - Epilogue: the accumulators go to shared memory (the ring, no longer
@@ -62,6 +69,8 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <cstring>
+#include <mutex>
 
 #include "wgmma_bf16.cuh"
 
@@ -71,7 +80,7 @@ constexpr int SEG = 64;          // output pixels of a row segment (M)
 constexpr int HC = SEG + 2;      // halo tile columns
 constexpr int CONSUMERS = 2;     // consumer warpgroups
 constexpr int THREADS = 128 * (CONSUMERS + 1);
-constexpr int HEAD = 256;        // alignment slack and the mbarriers
+constexpr int HEAD = 2048;       // 1024-byte alignment slack, the mbarriers
 constexpr int SMEM_MAX = 232448;
 
 __host__ __device__ constexpr int round_up(int n, int m) {
@@ -80,8 +89,20 @@ __host__ __device__ constexpr int round_up(int n, int m) {
 __host__ __device__ constexpr int halo_plane_bytes(int th) {
   return round_up((th + 2) * HC * 16, 128);
 }
+// Outputs of one weight box: its rows of wcols * 2 bytes are the swizzle
+// span (64 bytes: SWIZZLE_64B, layout type 2; 128: SWIZZLE_128B, type 1).
+__host__ __device__ constexpr int wcols(int n) {
+  return n >= 64 && (n % 64 == 0 || n > 192) ? 64 : 32;
+}
+// one box: 9 taps x 16 channels x wcols outputs
+__host__ __device__ constexpr int wbox_bytes(int n) {
+  return 9 * 16 * wcols(n) * 2;
+}
+__host__ __device__ constexpr int weight_bytes(int n) {
+  return (n + wcols(n) - 1) / wcols(n) * wbox_bytes(n);
+}
 __host__ __device__ constexpr int stage_bytes(int n, int th) {
-  return 2 * halo_plane_bytes(th) + 2 * 9 * n * 16;
+  return round_up(weight_bytes(n) + 2 * halo_plane_bytes(th), 1024);
 }
 __host__ __device__ constexpr int epi_seg_bytes(int n) {
   return SEG * n * 4 + 16;
@@ -115,14 +136,9 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
                : "memory");
 }
 
-// Wait for the completion of the barrier's phase of this parity. Built
-// with -DCONV_V2_WATCHDOG, a wait of more than 2^33 clocks (seconds) traps,
-// so that a fault in the ring ends the launch with an error, not a hang.
+// Wait for the completion of the barrier's phase of this parity.
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   uint32_t done = 0;
-#ifdef CONV_V2_WATCHDOG
-  const long long start = clock64();
-#endif
   while (!done) {
     asm volatile(
         "{\n.reg .pred p;\n"
@@ -131,9 +147,6 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "=r"(done)
         : "r"(bar), "r"(parity)
         : "memory");
-#ifdef CONV_V2_WATCHDOG
-    if (!done && clock64() - start > (1ll << 33)) __trap();
-#endif
   }
 }
 
@@ -148,23 +161,29 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
   asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
       : "memory");
 }
 
-// wgmma shared-memory matrix descriptor, no swizzle (layout type 0):
-// start address, LBO (the next core matrix along K) and SBO (the next 8
-// rows of M or N), each in 16-byte units.
+// wgmma shared-memory matrix descriptor: start address, LBO and SBO in
+// 16-byte units, and the layout type (0: no swizzle, 1: 128-byte swizzle,
+// 2: 64-byte swizzle). K-major, no swizzle (A): LBO the next core matrix
+// along K, SBO the next 8 rows of M. N-major, swizzled (B): LBO the next
+// box of columns of N, SBO the next 8 rows of K.
+template <int LAYOUT>
 __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
                                          uint32_t sbo) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32);
+         (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (static_cast<uint64_t>(LAYOUT) << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -187,28 +206,30 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// x map: (Cp, W, H, B) bf16, box (8, 66, TH+2, 1); wq: the wrapper's
-// (chunks, n_tiles, 2, 9, N, 8) weight; y: (B, H, W, Cout) fp32.
-// Grid: (tiles_h * tiles_w, n_tiles, B).
+// x map: (Cp, W, H, B) bf16, box (8, 66, TH+2, 1), no swizzle; w map: the
+// tap-major weight (Cw, Cin, 9) bf16, box (wcols(N), 16, 9), swizzled;
+// y: (B, H, W, Cout) fp32. Grid: (tiles_h * tiles_w, n_tiles, B).
 template <int N, int MS>
 __global__ void __launch_bounds__(THREADS, N <= 16 ? 2 : 1)
     conv_v2_kernel(const __grid_constant__ CUtensorMap xmap,
-                   const __nv_bfloat16* __restrict__ wq,
+                   const __grid_constant__ CUtensorMap wmap,
                    float* __restrict__ y, int H, int W, int Cout, int chunks,
-                   int stages, int n_tiles, int tiles_w) {
+                   int stages, int tiles_w) {
   constexpr int TH = CONSUMERS * MS;
   constexpr int HALO = halo_plane_bytes(TH);
-  constexpr int WB = 2 * 9 * N * 16;             // one step's weights
-  constexpr int STAGE = 2 * HALO + WB;
+  constexpr int WC = wcols(N);
+  constexpr int WBOX = wbox_bytes(N);
+  constexpr int WB = weight_bytes(N);            // one step's weight boxes
+  constexpr int STAGE = stage_bytes(N, TH);
   constexpr uint32_t TX = 2 * (TH + 2) * HC * 16 + WB;  // bytes a stage gets
   constexpr int EPI = epi_seg_bytes(N);
   constexpr bool WIDE = N > 16;                  // one block an SM
 
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~uintptr_t(127));
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   const uint32_t bars = smem_u32(base);          // full[s], then empty[s]
-  uint8_t* ring = base + 128;
+  uint8_t* ring = base + 1024;                   // stages 1024-byte aligned
   const uint32_t ring_u = smem_u32(ring);
 
   const int tid = threadIdx.x;
@@ -231,7 +252,6 @@ __global__ void __launch_bounds__(THREADS, N <= 16 ? 2 : 1)
     // producer: one thread keeps the ring full
     if constexpr (WIDE) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (tid == CONSUMERS * 128) {
-      const char* wsrc = reinterpret_cast<const char*>(wq) + (size_t)nt * WB;
       for (int k = 0; k < chunks; ++k) {
         const int s = k % stages;
         if (k >= stages)
@@ -239,9 +259,13 @@ __global__ void __launch_bounds__(THREADS, N <= 16 ? 2 : 1)
         const uint32_t full = bars + 8 * s;
         const uint32_t st = ring_u + s * STAGE;
         mbar_expect_tx(full, TX);
-        tma_load_4d(st, &xmap, full, 16 * k, w0 - 1, h0 - 1, b);
-        tma_load_4d(st + HALO, &xmap, full, 16 * k + 8, w0 - 1, h0 - 1, b);
-        bulk_load(st + 2 * HALO, wsrc + (size_t)k * n_tiles * WB, WB, full);
+#pragma unroll
+        for (int j = 0; j < WB / WBOX; ++j)
+          tma_load_3d(st + j * WBOX, &wmap, full, nt * N + j * WC, 16 * k,
+                      0);
+        tma_load_4d(st + WB, &xmap, full, 16 * k, w0 - 1, h0 - 1, b);
+        tma_load_4d(st + WB + HALO, &xmap, full, 16 * k + 8, w0 - 1, h0 - 1,
+                    b);
       }
     }
   } else {
@@ -261,11 +285,14 @@ __global__ void __launch_bounds__(THREADS, N <= 16 ? 2 : 1)
       wgmma_fence();
 #pragma unroll
       for (int t = 0; t < 9; ++t) {
-        const uint64_t bd = desc(st + 2 * HALO + t * N * 16, 9 * N * 16, 128);
+        // tap t's 16 x N weights: 16 rows of 2*WC bytes a box (swizzle
+        // atoms of 8 rows), boxes WBOX apart
+        const uint64_t bd =
+            desc<WC == 64 ? 1 : 2>(st + t * 16 * WC * 2, WBOX, 8 * WC * 2);
 #pragma unroll
         for (int m = 0; m < MS; ++m) {
-          const uint64_t ad =
-              desc(st + ((r0 + m + t / 3) * HC + t % 3) * 16, HALO, 128);
+          const uint64_t ad = desc<0>(
+              st + WB + ((r0 + m + t / 3) * HC + t % 3) * 16, HALO, 128);
           wgmma_bf16<N>(acc[m], ad, bd);
         }
       }
@@ -358,7 +385,7 @@ EncodeTiled encode_tiled() {
 }
 
 template <int N, int MS>
-int launch(const CUtensorMap& xmap, const __nv_bfloat16* wq, float* y, int B,
+int launch(const CUtensorMap& xmap, const CUtensorMap& wmap, float* y, int B,
            int H, int W, int Cout, int chunks, int stages, int n_tiles,
            int smem, int grid_x, cudaStream_t s) {
   constexpr int TH = CONSUMERS * MS;
@@ -367,56 +394,122 @@ int launch(const CUtensorMap& xmap, const __nv_bfloat16* wq, float* y, int B,
       smem < smem_needed(N, MS, stages))
     return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = conv_v2_kernel<N, MS>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  // the shared-memory limit is raised once per device to the most a block
+  // may have; each launch asks for its own
+  static bool raised[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<dim3(grid_x, n_tiles, B), THREADS, smem, s>>>(
-      xmap, wq, y, H, W, Cout, chunks, stages, n_tiles, tiles_w);
-  return static_cast<int>(cudaGetLastError());
+  if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!raised[dev]) {
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             SMEM_MAX);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    raised[dev] = true;
+  }
+  // cudaLaunchKernel reports this launch's own refusal, where
+  // cudaGetLastError could return an error another library left behind
+  void* args[] = {const_cast<CUtensorMap*>(&xmap),
+                  const_cast<CUtensorMap*>(&wmap), &y, &H, &W, &Cout, &chunks,
+                  &stages, const_cast<int*>(&tiles_w)};
+  return static_cast<int>(cudaLaunchKernel(
+      reinterpret_cast<const void*>(kernel), dim3(grid_x, n_tiles, B),
+      dim3(THREADS), args, smem, s));
+}
+
+// A bf16 tensor map over a dense tensor of `rank` (at most 4) dimensions,
+// innermost first, zero fill out of bounds. The last few maps are kept,
+// keyed by everything they encode: PyTorch's allocator hands the same
+// blocks out again, so most launches find theirs without encoding.
+struct MapKey {
+  const void* ptr;
+  int rank, swizzle;
+  cuuint64_t dims[4];
+  cuuint32_t box[4];
+};
+constexpr int MAP_CACHE = 32;
+std::mutex map_mutex;
+MapKey map_keys[MAP_CACHE];
+CUtensorMap map_vals[MAP_CACHE];
+int map_used = 0, map_next = 0;
+
+CUresult tensor_map(CUtensorMap* map, const void* ptr, int rank,
+                    const cuuint64_t* dims, const cuuint32_t* box,
+                    CUtensorMapSwizzle swizzle) {
+  MapKey key;
+  std::memset(&key, 0, sizeof key);
+  key.ptr = ptr;
+  key.rank = rank;
+  key.swizzle = static_cast<int>(swizzle);
+  std::memcpy(key.dims, dims, rank * sizeof *dims);
+  std::memcpy(key.box, box, rank * sizeof *box);
+  std::lock_guard<std::mutex> lock(map_mutex);
+  for (int i = 0; i < map_used; ++i)
+    if (std::memcmp(&map_keys[i], &key, sizeof key) == 0) {
+      *map = map_vals[i];
+      return CUDA_SUCCESS;
+    }
+  cuuint64_t strides[4];
+  cuuint64_t stride = 2;
+  for (int i = 0; i + 1 < rank; ++i) strides[i] = stride *= dims[i];
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  const CUresult r = encode_tiled()(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr),
+      dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r == CUDA_SUCCESS) {
+    map_keys[map_next] = key;
+    map_vals[map_next] = *map;
+    map_next = (map_next + 1) % MAP_CACHE;
+    if (map_used < MAP_CACHE) ++map_used;
+  }
+  return r;
 }
 
 }  // namespace
 
 // C interface for ctypes. The geometry comes from ops/conv_v2.py's
-// launch_plan: Cp (x's channels, a multiple of 8), the N tile and its row
-// segments a warpgroup (one of the pairs below), the N tiles, the K steps
-// (ceil(Cp/16)), the ring's stages, the dynamic shared memory and the
-// grid's pixel tiles; the kernel checks them against its own reckoning.
-// Returns 0, a cudaError_t, or 1000 + the CUresult of a refused tensor map.
+// launch_plan: Cp (x's channels, a multiple of 8), Cw (the weight's Cout
+// stride, a multiple of 8), the N tile and its row segments a warpgroup
+// (one of the pairs below), the N tiles, the K steps (ceil(Cp/16)), the
+// ring's stages, the dynamic shared memory and the grid's pixel tiles; the
+// kernel checks them against its own reckoning. x: (B, H, W, Cp) bf16;
+// w: (9, Cin, Cw) bf16; y: (B, H, W, Cout) fp32. Returns 0, a cudaError_t,
+// or 1000 + the CUresult of a refused tensor map.
 extern "C" int conv_v2_fwd(const void* x, const void* w, void* y, int B,
-                           int H, int W, int Cp, int Cout, int n_tile,
-                           int segs, int n_tiles, int chunks, int stages,
-                           int smem, int grid_x, void* stream) {
+                           int H, int W, int Cp, int Cin, int Cout, int Cw,
+                           int n_tile, int segs, int n_tiles, int chunks,
+                           int stages, int smem, int grid_x, void* stream) {
   const int bad = static_cast<int>(cudaErrorInvalidValue);
-  if (Cp % 8 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+  if (Cp % 8 != 0 || Cw % 8 != 0 || Cp < Cin || Cw < Cout ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(w) % 16 != 0 ||
       chunks != (Cp + 15) / 16 || n_tile * n_tiles < Cout ||
       n_tile * (n_tiles - 1) >= Cout || stages < 1 || stages > chunks ||
       (stages < 2 && chunks > 1) || smem > SMEM_MAX || n_tiles > 65535 ||
       B > 65535)
     return bad;
-  EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  const int th = 2 * segs;
-  CUtensorMap xmap;
-  const cuuint64_t dims[4] = {(cuuint64_t)Cp, (cuuint64_t)W, (cuuint64_t)H,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)Cp * 2, (cuuint64_t)W * Cp * 2,
-                                 (cuuint64_t)H * W * Cp * 2};
-  const cuuint32_t box[4] = {8, (cuuint32_t)HC, (cuuint32_t)(th + 2), 1};
-  const cuuint32_t estr[4] = {1, 1, 1, 1};
-  CUresult r = encode(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                      const_cast<void*>(x), dims, strides, box, estr,
-                      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-                      CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (encode_tiled() == nullptr)
+    return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap xmap, wmap;
+  const cuuint64_t xdims[4] = {(cuuint64_t)Cp, (cuuint64_t)W, (cuuint64_t)H,
+                               (cuuint64_t)B};
+  const cuuint32_t xbox[4] = {8, (cuuint32_t)HC, (cuuint32_t)(2 * segs + 2),
+                              1};
+  CUresult r = tensor_map(&xmap, x, 4, xdims, xbox, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (r != CUDA_SUCCESS) return 1000 + static_cast<int>(r);
+  const cuuint64_t wdims[3] = {(cuuint64_t)Cw, (cuuint64_t)Cin, 9};
+  const cuuint32_t wbox[3] = {(cuuint32_t)wcols(n_tile), 16, 9};
+  r = tensor_map(&wmap, w, 3, wdims, wbox,
+                 wcols(n_tile) == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : CU_TENSOR_MAP_SWIZZLE_64B);
   if (r != CUDA_SUCCESS) return 1000 + static_cast<int>(r);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* wp = static_cast<const __nv_bfloat16*>(w);
   float* out = static_cast<float*>(y);
 #define CONV_V2_CASE(n, ms)                                                   \
   if (n_tile == n && segs == ms)                                              \
-    return launch<n, ms>(xmap, wp, out, B, H, W, Cout, chunks, stages,        \
+    return launch<n, ms>(xmap, wmap, out, B, H, W, Cout, chunks, stages,      \
                          n_tiles, smem, grid_x, s);
   CONV_V2_CASE(8, 8)
   CONV_V2_CASE(16, 4)
@@ -424,7 +517,7 @@ extern "C" int conv_v2_fwd(const void* x, const void* w, void* y, int B,
   CONV_V2_CASE(64, 2)
   CONV_V2_CASE(96, 2)
   CONV_V2_CASE(128, 2)
-  CONV_V2_CASE(192, 1)
+  CONV_V2_CASE(192, 2)
   CONV_V2_CASE(248, 1)
 #undef CONV_V2_CASE
   return bad;

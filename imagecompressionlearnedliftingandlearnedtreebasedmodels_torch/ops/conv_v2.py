@@ -11,10 +11,10 @@ autograd Function picks it by operand type (``csrc/conv3x3_halo.cu`` keeps
 the fp32 ones).
 
 The kernel (``csrc/conv_v2.cu``, built at first use by :mod:`.nvcc`) runs
-Hopper's ``wgmma`` on operands that TMA and bulk copies bring into a ring
-of shared-memory stages; :func:`launch_plan` computes its geometry here
-(tiles, stages, grid, shared memory), and :func:`padded_operands` lays the
-operands out for it. Its bound on an H100 SXM is the larger of its
+Hopper's ``wgmma`` on operands that TMA brings into a ring of
+shared-memory stages; :func:`launch_plan` computes its geometry here
+(tiles, stages, grid, shared memory), and :func:`padded_operands` pads the
+operands where the kernel's TMA maps need it. Its bound on an H100 SXM is the larger of its
 operations over 989 TFLOP/s (bf16 tensor cores) and its bytes (bf16 input
 and weight read once, fp32 output written once) over 3.35 TB/s: operations
 at the flagship's wide shapes, bytes at the narrow ends.
@@ -27,6 +27,7 @@ show which path it went through.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 from typing import NamedTuple
 
@@ -43,21 +44,20 @@ launches_dx = 0  # those of them that computed a dx
 # The kernel's fixed geometry (csrc/conv_v2.cu keeps the same constants).
 SEG = 64              # output pixels of one row segment: wgmma's M
 KC = 16               # input channels a K step: wgmma's K for bf16
-CONSUMERS = 2         # consumer warpgroups a block
-THREADS = 128 * (CONSUMERS + 1)   # and one producer warpgroup
+CONSUMERS = 2         # consumer warpgroups a block (and one producer)
 SMEM_MAX = 232_448    # dynamic shared memory a block may have on sm_90
 SMEM_RESERVED = 1024  # what the card keeps for itself of each block's share
-HEAD = 256            # alignment slack and the ring's mbarriers
+HEAD = 2048           # 1024-byte alignment slack and the ring's mbarriers
 MAX_STAGES = 4
 # N tiles the kernel is built for, each with its row segments a consumer
 # warpgroup runs (N/2 * segments fp32 accumulators a thread)
 N_TILES = (8, 16, 32, 64, 96, 128, 192, 248)
-SEGMENTS = {8: 8, 16: 4, 32: 4, 64: 2, 96: 2, 128: 2, 192: 1, 248: 1}
+SEGMENTS = {8: 8, 16: 4, 32: 4, 64: 2, 96: 2, 128: 2, 192: 2, 248: 1}
 
 
 def _declare(lib: ctypes.CDLL) -> None:
     fn = lib.conv_v2_fwd
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 12 \
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 14 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
@@ -73,10 +73,11 @@ class Plan(NamedTuple):
     cin: int
     cout: int
     cp: int           # x's channels as the kernel reads them (multiple of 8)
+    cw: int           # the weight's Cout as the kernel reads it (multiple of 8)
     chunks: int       # K steps of 16 channels (the last may read past cp)
     n_tile: int
     n_tiles: int
-    coutp: int        # n_tile * n_tiles: the weight's padded Cout
+    coutp: int        # n_tile * n_tiles: the output channels the tiles span
     segments: int     # row segments a consumer warpgroup runs
     tile_h: int
     tile_w: int
@@ -93,10 +94,23 @@ def halo_plane_bytes(tile_h: int) -> int:
     return _ceil((tile_h + 2) * (SEG + 2) * 16, 128)
 
 
+def wcols(n_tile: int) -> int:
+    """Outputs of one weight box: 64 (128-byte rows, the 128-byte swizzle)
+    where the N tile is a multiple of 64 or above 192, else 32 (64-byte
+    rows and swizzle)."""
+    return 64 if n_tile >= 64 and (n_tile % 64 == 0 or n_tile > 192) else 32
+
+
+def weight_bytes(n_tile: int) -> int:
+    """One K step's weights: boxes of 9 taps x 16 channels x wcols
+    outputs."""
+    return -(-n_tile // wcols(n_tile)) * 9 * 16 * wcols(n_tile) * 2
+
+
 def stage_bytes(n_tile: int, tile_h: int) -> int:
-    """One ring stage: two halo planes and the weights of one K step (two
-    planes of 9 taps x n_tile x 8 channels)."""
-    return 2 * halo_plane_bytes(tile_h) + 2 * 9 * n_tile * 16
+    """One ring stage, 1024-byte aligned: the K step's weight boxes and two
+    halo planes."""
+    return _ceil(weight_bytes(n_tile) + 2 * halo_plane_bytes(tile_h), 1024)
 
 
 def epilogue_bytes(n_tile: int, segments: int) -> int:
@@ -105,66 +119,60 @@ def epilogue_bytes(n_tile: int, segments: int) -> int:
     return CONSUMERS * segments * (SEG * n_tile * 4 + 16)
 
 
-def pick_n_tile(cout: int) -> int:
-    """The N tile: all of Cout where one of ``N_TILES`` holds it (the
-    smallest that does), else Cout split evenly over the fewest tiles of at
-    most 248."""
-    parts = -(-cout // N_TILES[-1])
-    need = _ceil(-(-cout // parts), 8)
-    return next(n for n in N_TILES if n >= need)
+def pick_n_tile(cout: int, chunks: int) -> int:
+    """The N tile: all of Cout where one of ``N_TILES`` up to 192 holds it
+    (the smallest that does). Wider Cout goes in tiles of 128 (two segments
+    a warpgroup: a K step's weights serve twice the pixels) where K has 4
+    steps or more, else in one tile of 248 (one narrow K step: the output's
+    bytes set the pace, and one tile stores them in contiguous runs)."""
+    if cout <= 192:
+        return next(n for n in N_TILES if n >= cout)
+    return 128 if chunks >= 4 or cout > 248 else 248
 
 
-def launch_plan(b: int, h: int, w: int, cin: int, cout: int,
-                n_tile: int | None = None) -> Plan:
-    """The kernel's geometry for x (b, cin, h, w) -> cout channels.
-    ``n_tile`` overrides :func:`pick_n_tile` (one of ``N_TILES``)."""
-    n_tile = pick_n_tile(cout) if n_tile is None else n_tile
-    if n_tile not in SEGMENTS:
-        raise ValueError(f"conv_v2: no kernel for an N tile of {n_tile}")
-    segs = SEGMENTS[n_tile]
-    tile_h = CONSUMERS * segs
+@functools.lru_cache(maxsize=1024)
+def launch_plan(b: int, h: int, w: int, cin: int, cout: int) -> Plan:
+    """The kernel's geometry for x (b, cin, h, w) -> cout channels."""
     cp = _ceil(cin, 8)
     chunks = -(-cp // KC)
+    n_tile = pick_n_tile(cout, chunks)
+    segs = SEGMENTS[n_tile]
+    tile_h = CONSUMERS * segs
     n_tiles = -(-cout // n_tile)
     blocks = 2 if n_tile <= 16 else 1
     budget = SMEM_MAX if blocks == 1 else \
         (SMEM_MAX + SMEM_RESERVED) // blocks - SMEM_RESERVED
     stage = stage_bytes(n_tile, tile_h)
     stages = min(MAX_STAGES, chunks, (budget - HEAD) // stage)
-    if stages < min(2, chunks):
-        raise ValueError(f"conv_v2: an N tile of {n_tile} leaves no room "
-                         f"for two stages")
     smem = HEAD + max(stages * stage, epilogue_bytes(n_tile, segs))
     if blocks == 1:
         # setmaxnreg hands one block the whole register file: ask for more
         # than half the SM's shared memory so that no second block is placed
         smem = max(smem, (SMEM_MAX + SMEM_RESERVED) // 2 + 1)
     grid = (-(-h // tile_h) * -(-w // SEG), n_tiles, b)
-    return Plan(cin, cout, cp, chunks, n_tile, n_tiles, n_tile * n_tiles,
-                segs, tile_h, SEG, stages, stage, blocks, smem, grid)
+    return Plan(cin, cout, cp, _ceil(cout, 8), chunks, n_tile, n_tiles,
+                n_tile * n_tiles, segs, tile_h, SEG, stages, stage, blocks,
+                smem, grid)
 
 
 def padded_operands(x: torch.Tensor, wt: torch.Tensor, plan: Plan):
-    """The kernel's operands. x: channels zero-padded to ``plan.cp`` (a
-    multiple of 8, so that every TMA stride is a multiple of 16 bytes) and
-    16-byte aligned; it stays as it is where it already fits. The weight
-    (9, Cin, Cout) laid out K-major in the order the kernel stages it, one
-    contiguous block per K step and N tile: (chunks, n_tiles, 2, 9,
-    n_tile, 8) = [K step][N tile][8-channel half][tap][output][channel],
-    zero past Cin and Cout. Zero channels add nothing to the sums."""
-    b, cin, h, w = x.shape
-    cout = wt.shape[2]
+    """The kernel's operands, copied only where they do not fit its TMA
+    maps: x's channels zero-padded to ``plan.cp`` (a multiple of 8, so that
+    every stride is a multiple of 16 bytes), the tap-major weight (9, Cin,
+    Cout) zero-padded to ``plan.cw`` outputs likewise, each 16-byte aligned.
+    The kernel's loads fill with zeros past Cin, Cout and the image's
+    border; zero channels add nothing to the sums."""
+    cin, cout = x.shape[1], wt.shape[2]
     if plan.cp != cin:
         nhwc = F.pad(x.permute(0, 2, 3, 1), (0, plan.cp - cin))
         x = nhwc.permute(0, 3, 1, 2)    # channels_last
     elif x.data_ptr() % 16:
         x = x.clone(memory_format=torch.channels_last)
-    kp = plan.chunks * KC
-    wpad = F.pad(wt, (0, plan.coutp - cout, 0, kp - cin))  # (9, kp, coutp)
-    wq = wt.new_empty((plan.chunks, plan.n_tiles, 2, 9, plan.n_tile, 8))
-    wq.permute(3, 0, 2, 5, 1, 4).copy_(
-        wpad.view(9, plan.chunks, 2, 8, plan.n_tiles, plan.n_tile))
-    return x, wq
+    if plan.cw != cout:
+        wt = F.pad(wt, (0, plan.cw - cout))
+    elif wt.data_ptr() % 16:
+        wt = wt.clone()
+    return x, wt
 
 
 LIBRARY = nvcc.Library(SOURCE, _declare)
@@ -182,12 +190,11 @@ def conv_v2_plain(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
                     weight.to(torch.bfloat16).float(), padding=1)
 
 
-def launch_kernel(x: torch.Tensor, wt: torch.Tensor, dx: bool = False,
-                  n_tile: int | None = None) -> torch.Tensor:
+def launch_kernel(x: torch.Tensor, wt: torch.Tensor,
+                  dx: bool = False) -> torch.Tensor:
     """Run the kernel on bf16 NHWC-stored ``x`` (B,Cin,H,W) and tap-major
     bf16 ``wt`` (9,Cin,Cout); returns fp32 (B,Cout,H,W) in channels_last.
-    ``dx`` counts the launch as a dx too; ``n_tile`` overrides the plan's
-    N tile."""
+    ``dx`` counts the launch as a dx too."""
     global launches, launches_dx
     if x.device.type != "cuda" or wt.device != x.device:
         raise ValueError("conv_v2 kernel: x and weight must be on the same "
@@ -207,17 +214,17 @@ def launch_kernel(x: torch.Tensor, wt: torch.Tensor, dx: bool = False,
     cout = wt.shape[2]
     if min(b, cin, h, w, cout) < 1:
         raise ValueError(f"conv_v2 kernel: empty shape {tuple(x.shape)}")
-    plan = launch_plan(b, h, w, cin, cout, n_tile)
+    plan = launch_plan(b, h, w, cin, cout)
     y = torch.empty((b, cout, h, w), device=x.device, dtype=torch.float32,
                     memory_format=torch.channels_last)
     lib = build()
     with torch.cuda.device(x.device):
-        xp, wq = padded_operands(x, wt, plan)
+        xp, wp = padded_operands(x, wt, plan)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.conv_v2_fwd(
-            xp.data_ptr(), wq.data_ptr(), y.data_ptr(), b, h, w, plan.cp,
-            cout, plan.n_tile, plan.segments, plan.n_tiles, plan.chunks,
-            plan.stages, plan.smem_bytes, plan.grid[0], stream)
+            xp.data_ptr(), wp.data_ptr(), y.data_ptr(), b, h, w, plan.cp, cin,
+            cout, plan.cw, plan.n_tile, plan.segments, plan.n_tiles,
+            plan.chunks, plan.stages, plan.smem_bytes, plan.grid[0], stream)
     if err != 0:
         raise RuntimeError(f"conv_v2 kernel launch failed: error {err}")
     launches += 1

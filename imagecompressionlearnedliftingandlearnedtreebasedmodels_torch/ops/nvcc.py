@@ -6,8 +6,9 @@ this package's ``build/`` directory, under a name keyed by the hash of the
 source, of every local header it includes (``#include "..."``, followed
 through headers that include others) and of the flags (an edited source or
 header builds anew; an unchanged one is loaded as it is), loads it with
-``ctypes`` and declares its functions' argument types. Nothing is built when a module is imported: the first
-launch builds. A failed build raises; there is no fallback.
+``ctypes`` and declares its functions' argument types. Nothing is built
+when a module is imported: the first launch builds. A failed build raises;
+there is no fallback.
 """
 
 from __future__ import annotations

@@ -26,14 +26,14 @@ def _one(n: int) -> str:
         ", ".join(f'"+f"(d[{i}])' for i in range(j, min(j + 4, regs)))
         for j in range(0, regs, 4))
     return f"""
-// m64n{n}k16, both operands K-major in shared memory, fp32 sums += A * B
+// m64n{n}k16: A K-major, B N-major in shared memory; fp32 sums += A * B
 template <>
 __device__ __forceinline__ void wgmma_bf16<{n}>(float (&d)[{regs}],
                                                uint64_t a, uint64_t b) {{
   asm volatile(
       "{{\\n.reg .pred p;\\nsetp.ne.b32 p, %{regs + 2}, 0;\\n"
       "wgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16 "
-      "{{{lst}}}, %{regs}, %{regs + 1}, p, 1, 1, 0, 0;\\n}}\\n"
+      "{{{lst}}}, %{regs}, %{regs + 1}, p, 1, 1, 0, 1;\\n}}\\n"
       : {outs}
       : "l"(a), "l"(b), "r"(1));
 }}
@@ -45,8 +45,8 @@ def render(n_tiles=conv_v2.N_TILES) -> str:
     return f"""// Written by tools/gen_wgmma.py; do not edit by hand.
 //
 // wgmma.mma_async m64nNk16 bf16 x bf16 -> fp32, scale-d true (D += A * B),
-// A and B from shared-memory matrix descriptors, neither transposed
-// (both K-major). One function per N tile of csrc/conv_v2.cu.
+// A and B from shared-memory matrix descriptors, A K-major, B transposed
+// (N-major: imm-trans-b 1). One function per N tile of csrc/conv_v2.cu.
 #pragma once
 #include <cstdint>
 

@@ -9,6 +9,11 @@ with ``pl`` bound to a namespace whose ``pallas_call`` interprets.
 
 Tolerance: 1e-5 of max |y|. The products of bf16 operands are exact in
 fp32; the sums of the two sides differ only in order.
+
+Also, on the CPU, what the wrapper hands the CUDA kernel: its operands'
+padding, its launch plan at every shape the port runs (the kernel itself
+runs only on the card, ``tests/test_torch_cuda.py``), the generated
+``wgmma`` header, the ctypes declaration and the build's key.
 """
 
 import ast
@@ -118,30 +123,33 @@ def test_launcher_refuses_a_cpu_tensor():
 @pytest.mark.parametrize("cin,cout", [(3, 96), (243, 243), (96, 3),
                                       (192, 96), (1, 32)])
 def test_padded_operands_add_nothing(cin, cout):
-    """The kernel's operands: x's channels padded to a multiple of 8, the
-    weight laid out as (K steps, N tiles, 2, 9, N tile, 8) with zeros past
-    Cin and Cout, the N tile the smallest of the kernel's that holds Cout;
-    the conv of the padded operands is the conv (zero channels add exact
-    zeros; the CPU conv may sum the longer K in another order: 1e-6)."""
+    """The kernel's operands: x's channels padded to a multiple of 8 and the
+    tap-major weight's Cout likewise (every TMA stride a multiple of 16
+    bytes), each copied only where it needs that; the N tile the smallest
+    of the kernel's that holds Cout, or 128 past 192 with 4 K steps or
+    more; the conv of the padded operands is the
+    conv (zero channels add exact zeros; the CPU conv may sum the longer K
+    in another order: 1e-6)."""
     rng = np.random.RandomState(cin + cout)
     x = torch.from_numpy(rng.randn(2, cin, 5, 7).astype(np.float32)).to(
         torch.bfloat16).contiguous(memory_format=torch.channels_last)
     wt = torch.from_numpy(rng.randn(cout, cin, 3, 3).astype(np.float32))
+    w9 = conv.tap_major(wt, torch.bfloat16)
     plan = conv_v2.launch_plan(2, 5, 7, cin, cout)
-    xp, wq = conv_v2.padded_operands(x, conv.tap_major(wt, torch.bfloat16),
-                                     plan)
-    cp, kp, coutp = plan.cp, plan.chunks * 16, plan.coutp
-    assert cp % 8 == 0 and cp - cin < 8 and kp >= cp and kp - cp < 16
-    assert plan.n_tiles == 1 and plan.n_tile == min(
-        n for n in conv_v2.N_TILES if n >= cout)
+    xp, wp = conv_v2.padded_operands(x, w9, plan)
+    cp, cw = plan.cp, plan.cw
+    assert cp % 8 == 0 and cp - cin < 8 and cw % 8 == 0 and cw - cout < 8
+    assert (xp is x) == (cp == cin) and (wp is w9) == (cw == cout)
+    if cout <= 192 or plan.chunks < 4:
+        assert plan.n_tiles == 1 and plan.n_tile == min(
+            n for n in conv_v2.N_TILES if n >= cout)
+    else:
+        assert plan.n_tile == 128 and plan.n_tiles == -(-cout // 128)
     assert xp.shape == (2, cp, 5, 7)
     assert xp.is_contiguous(memory_format=torch.channels_last)
-    assert wq.shape == (plan.chunks, 1, 2, 9, plan.n_tile, 8)
-    assert wq.is_contiguous()
-    # back to (9, K, Cout) and to a conv weight
-    w9 = wq.permute(3, 0, 2, 5, 1, 4).reshape(9, kp, coutp)
-    w4 = w9.float().reshape(3, 3, kp, coutp).permute(3, 2, 0, 1)[:, :cp]
-    assert torch.equal(w4[:, cin:], torch.zeros_like(w4[:, cin:]))
+    assert wp.shape == (9, cin, cw) and wp.is_contiguous()
+    w4 = wp.float().reshape(3, 3, cin, cw).permute(3, 2, 0, 1)
+    w4 = torch.nn.functional.pad(w4, (0, 0, 0, 0, 0, cp - cin))
     got = torch.nn.functional.conv2d(xp.float(), w4, padding=1)
     assert torch.equal(got[:, cout:], torch.zeros_like(got[:, cout:]))
     want = conv_v2.conv_v2_plain(x.float(), wt)
@@ -218,15 +226,25 @@ def test_launch_plan_fits_the_card_and_covers_the_output(b, h, w, cin, cout):
     assert p.blocks_per_sm * per_block <= sm
     assert p.blocks_per_sm == (2 if p.n_tile <= 16 else 1)
     assert p.blocks_per_sm == 2 or 2 * per_block > sm
-    # TMA: x's map (Cp, W, H, B) in bf16, its strides in bytes multiples of
-    # 16, its box (8, 66, tile_h + 2, 1) at most 256 a dimension and 16
-    # bytes a row; the weight's bulk copy a multiple of 16 bytes
-    strides = (p.cp * 2, w * p.cp * 2, h * w * p.cp * 2)
-    assert all(s % 16 == 0 for s in strides)
-    box = (8, p.tile_w + 2, p.tile_h + 2, 1)
-    assert max(box) <= 256 and box[0] * 2 % 16 == 0
+    # TMA: x's map (Cp, W, H, B) and the weight's (Cw, Cin, 9), bf16, their
+    # strides in bytes multiples of 16, their boxes at most 256 a dimension:
+    # x's (8, 66, tile_h + 2, 1), 16-byte rows, no swizzle; the weight's
+    # (32, 16, 9), 64-byte rows under the 64-byte swizzle
+    assert p.cw % 8 == 0 and 0 <= p.cw - cout < 8
+    for strides in ((p.cp * 2, w * p.cp * 2, h * w * p.cp * 2),
+                    (p.cw * 2, cin * p.cw * 2)):
+        assert all(s % 16 == 0 for s in strides)
+    xbox = (8, p.tile_w + 2, p.tile_h + 2, 1)
+    wbox = (conv_v2.wcols(p.n_tile), 16, 9)
+    assert max(xbox + wbox) <= 256 and xbox[0] * 2 == 16
+    assert wbox[0] * 2 in (64, 128)
+    # each box lands where its layout needs: weight boxes (a whole number
+    # of 512-byte swizzle atoms) first in a 1024-byte aligned stage, then
+    # the halo planes on 128-byte boundaries
+    assert conv_v2.weight_bytes(p.n_tile) % 1024 == 0
+    assert conv_v2.weight_bytes(p.n_tile) >= 9 * 16 * p.n_tile * 2
     assert conv_v2.halo_plane_bytes(p.tile_h) % 128 == 0
-    assert (2 * 9 * p.n_tile * 16) % 128 == 0
+    assert p.stage_bytes % 1024 == 0
     assert p.grid[1] <= 65535 and p.grid[2] <= 65535
 
 

@@ -126,9 +126,10 @@ V2_SHAPES = [
     (2, 6, 130, 16, 8),     # three segments across, Cout 8 (N tile 8)
     (1, 1, 40, 96, 192),    # H = 1: every tap row but one is padding
     (2, 7, 2, 32, 9),       # an image narrower than the halo, Cout 9
-    (1, 9, 20, 64, 200),    # Cout 200 in one N tile of 248
-    (3, 10, 24, 96, 243),   # B = 3, Cout 243 (N tile 248)
-    (1, 6, 20, 16, 300),    # Cout 300: two N tiles of 152 -> 192
+    (1, 9, 20, 64, 200),    # Cout 200: two N tiles of 128
+    (3, 10, 24, 96, 243),   # B = 3, Cout 243 (two N tiles of 128; its dx
+                            # 243 -> 96, 16 K steps)
+    (1, 6, 20, 16, 300),    # Cout 300: three N tiles of 128
 ]
 
 
