@@ -364,7 +364,7 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                  CUtensorMapL2promotion,
                                  CUtensorMapFloatOOBfill);
 
-// The driver's cuTensorMapEncodeTiled, found through the runtime so that
+// libcuda's cuTensorMapEncodeTiled, found through the runtime so that
 // the library needs no link against libcuda.
 EncodeTiled encode_tiled() {
   static EncodeTiled fn = nullptr;
