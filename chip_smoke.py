@@ -14,20 +14,20 @@ exit code and no result line:
            once, with the flags each was built with;
 3. kernel  the fp32 conv kernel (conv3x3_halo, CUDA cores) launched directly
            against its plain PyTorch version at every distinct eval-path
-           shape (B=8, 512x768) in bf16 and fp32 operands, with its time, the
-           plain version's, cuDNN's (``F.conv2d``, the yardstick, never used
+           shape (B=8, 512x768), fp32 operands, with its time, the plain
+           version's, cuDNN's fp32 ``F.conv2d`` (the yardstick, never used
            by the port) and the card's bound for the same work;
 4. kernel_bwd  the same kernel's dx (on the flipped, swapped weight) and the
-           dk product at every distinct training shape (B=8, 256x256), bf16
-           and fp32, against ``conv3x3_halo_bwd_plain``, by direct launches,
-           with their times, the bound and cuDNN's for the same gradients
+           dk product at every distinct training shape (B=8, 256x256), fp32,
+           against ``conv3x3_halo_bwd_plain``, by direct launches, with
+           their times, the bound and cuDNN's for the same gradients
            (``torch.nn.grad.conv2d_input`` / ``conv2d_weight``);
 5. conv_v2_kernel  the bf16 tensor-core conv (conv_v2) against
            ``conv_v2_plain``: forward at every eval-path shape, the conv
            Function's forward, dx and dk in bf16 at every training shape, and
            forward at ``scripts/bench_pallas_v2.py``'s three shapes; per
            shape its time, TFLOP/s, the bound, the plain version's time,
-           cuDNN's bf16 ``F.conv2d``, kernel 1's bf16 time, the wrapper's
+           cuDNN's bf16 ``F.conv2d``, the wrapper's
            operand copies alone (``pad_ms``), the launch plan (N tile,
            stages, dynamic shared memory) and the kernel's registers and
            spills from the build log;
@@ -42,7 +42,11 @@ exit code and no result line:
 8. main    the flagship codec in bf16 at full width and size (B=8 seeded
            512x768 images, lambda=2000 weights): bpp, PSNR, MP/s, ms per
            eval step, and conv_v2's launches per step (kernel 1's: none);
-           checked against one fp32 step on the same batch;
+           then the same batch through the fp32 codec (the default config's
+           dtype, every dense 3x3 conv through conv3x3_halo): a warm-up and
+           the same number of timed steps (``fp32_ms_per_step``, MP/s,
+           kernel 1's launches against 138 a step), one of them profiled
+           (``profile_fp32``); bf16 checked against fp32;
 9. profile one more eval step under torch.profiler: device busy time and
            the kernels that take most of it;
 10. train  the flagship in bf16, B=8 patches of 256x256, from the
@@ -106,7 +110,7 @@ Then a ``kernels`` line, the card's name and power limit again, and the
 last line ``{"ok": true, "device": {...}}``.
 
 TF32 is off (cuDNN and matmul) for every fp32 comparison and fp32 run:
-phases 3 to 7, the fp32 step of phase 8, phases 11 and 12, 14, 15 and 18.
+phases 3 to 7, the fp32 steps of phase 8, phases 11 and 12, 14, 15 and 18.
 """
 
 from __future__ import annotations
@@ -354,44 +358,39 @@ def phase_kernel(torch, F, conv, cfg):
                         ).contiguous(memory_format=torch.channels_last)
         wt = torch.randn(cout, cin, 3, 3, device=DEV, generator=gen
                          ) / (3 * cin ** 0.5)
-        for name, dt in (("bfloat16", torch.bfloat16),
-                         ("float32", torch.float32)):
-            with torch.no_grad():
-                # the kernel alone, on operands already cast and laid out
-                xl = x.to(dt).contiguous(memory_format=torch.channels_last)
-                w9 = conv.tap_major(wt, dt)
-                wl = wt.to(dt).contiguous(memory_format=torch.channels_last)
-                got = conv.launch_kernel(xl, w9)
-                want = conv.conv3x3_halo_plain(x, wt, dt)
-                torch.cuda.synchronize()
-                abs_err = (got - want).abs().max().item()
-                rel_err = abs_err / want.abs().max().item()
-                if not rel_err <= KERNEL_TOL:
-                    raise AssertionError(
-                        f"conv3x3_halo {name} {(B, cin, h, w)}->{cout}: "
-                        f"error {rel_err:.3e} > {KERNEL_TOL}")
-                del got, want
-                ms = time_ms(lambda: conv.launch_kernel(xl, w9), torch)
-                plain_ms = time_ms(
-                    lambda: conv.conv3x3_halo_plain(x, wt, dt), torch)
-                lib_ms = time_ms(lambda: F.conv2d(xl, wl, padding=1), torch)
-                del xl, w9, wl
-            dsize = 2 if name == "bfloat16" else 4
-            flops = 2.0 * 9 * cin * cout * B * h * w
-            nbytes = (B * h * w * cin + 9 * cin * cout) * dsize \
-                + B * h * w * cout * 4
-            t_ops = flops / PEAK_FLOPS[name] * 1e3
-            t_bytes = nbytes / PEAK_BYTES * 1e3
-            row = {"phase": "kernel", "dtype": name, "x": [B, cin, h, w],
-                   "cout": cout, "launches_per_step": per_step,
-                   "max_abs_err": abs_err, "max_rel_err": rel_err,
-                   "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                   "bound_ms": max(t_ops, t_bytes), "ops_ms": t_ops,
-                   "bytes_ms": t_bytes,
-                   "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                   "gflop": flops / 1e9, "tflops": flops / ms / 1e9}
-            emit(row)
-            rows.append(row)
+        name, dt = "float32", torch.float32
+        with torch.no_grad():
+            # the kernel alone, on operands already cast and laid out
+            xl = x.to(dt).contiguous(memory_format=torch.channels_last)
+            w9 = conv.tap_major(wt, dt)
+            wl = wt.to(dt).contiguous(memory_format=torch.channels_last)
+            got = conv.launch_kernel(xl, w9)
+            want = conv.conv3x3_halo_plain(x, wt, dt)
+            torch.cuda.synchronize()
+            abs_err = (got - want).abs().max().item()
+            rel_err = abs_err / want.abs().max().item()
+            if not rel_err <= KERNEL_TOL:
+                raise AssertionError(
+                    f"conv3x3_halo {name} {(B, cin, h, w)}->{cout}: "
+                    f"error {rel_err:.3e} > {KERNEL_TOL}")
+            del got, want
+            ms = time_ms(lambda: conv.launch_kernel(xl, w9), torch)
+            plain_ms = time_ms(
+                lambda: conv.conv3x3_halo_plain(x, wt, dt), torch)
+            lib_ms = time_ms(lambda: F.conv2d(xl, wl, padding=1), torch)
+            del xl, w9, wl
+        flops = 2.0 * 9 * cin * cout * B * h * w
+        bound, t_ops, t_bytes = conv_bound(B * h * w, cin, cout, name)
+        row = {"phase": "kernel", "dtype": name, "x": [B, cin, h, w],
+               "cout": cout, "launches_per_step": per_step,
+               "max_abs_err": abs_err, "max_rel_err": rel_err,
+               "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+               "bound_ms": bound, "ops_ms": t_ops,
+               "bytes_ms": t_bytes,
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "gflop": flops / 1e9, "tflops": flops / ms / 1e9}
+        emit(row)
+        rows.append(row)
         del x, wt
     torch.cuda.empty_cache()
     return rows
@@ -410,81 +409,81 @@ def phase_kernel_bwd(torch, conv, cfg):
         wt = torch.randn(cout, cin, 3, 3, device=DEV, generator=gen
                          ) / (3 * cin ** 0.5)
         dy = torch.randn(b, cout, h, w, device=DEV, generator=gen)
-        for name, dt in (("bfloat16", torch.bfloat16),
-                         ("float32", torch.float32)):
-            with torch.no_grad():
-                cl = torch.channels_last
-                xl = x.to(dt).contiguous(memory_format=cl)
-                dyl = dy.to(dt).contiguous(memory_format=cl)
-                w9 = conv.tap_major(wt, dt)
-                w9_dx = conv.tap_major(conv.flip_swap(wt), dt)
-                wl = wt.to(dt).contiguous(memory_format=cl)
-                conv.launches = 0
-                y = conv.launch_kernel(xl, w9)
-                dx = conv.launch_kernel(dyl, w9_dx)
-                dk = conv.dk_product(xl, dyl)
-                torch.cuda.synchronize()
-                expect_launches(conv.launches, 2, "one forward and one dx")
-                want_y = conv.conv3x3_halo_plain(x, wt, dt)
-                want_dx, want_dk = conv.conv3x3_halo_bwd_plain(x, wt, dy, dt)
-                fwd_abs = (y - want_y).abs().max().item()
-                fwd_rel = rel_err(y, want_y)
-                dx_abs = (dx - want_dx).abs().max().item()
-                dx_rel = rel_err(dx, want_dx)
-                dk_rel = rel_err(dk, want_dk)
-                if not fwd_rel <= KERNEL_TOL or not dx_rel <= KERNEL_TOL \
-                        or not dk_rel <= DK_TOL[name]:
-                    raise AssertionError(
-                        f"conv3x3_halo {name} {(b, cin, h, w)}->{cout}: "
-                        f"forward error {fwd_rel:.3e}, dx error {dx_rel:.3e} "
-                        f"(limit {KERNEL_TOL}), dk error {dk_rel:.3e} "
-                        f"(limit {DK_TOL[name]})")
-                del y, dx, dk, want_y, want_dx, want_dk
-                t = lambda fn: time_ms(fn, torch, min_ms=50.0)  # noqa: E731
-                dx_ms = t(lambda: conv.launch_kernel(dyl, w9_dx))
-                dk_ms = t(lambda: conv.dk_product(xl, dyl))
-                fwd_ms = t(lambda: conv.launch_kernel(xl, w9))
-                plain_ms = t(lambda: conv.conv3x3_halo_plain(
-                    dy, conv.flip_swap(wt), dt))
-                lib_dx_ms = t(lambda: torch.nn.grad.conv2d_input(
-                    xl.shape, wl, dyl, padding=1))
-                lib_dk_ms = t(lambda: torch.nn.grad.conv2d_weight(
-                    xl, wl.shape, dyl, padding=1))
-                del xl, dyl, w9, w9_dx, wl
-            dsize = 2 if name == "bfloat16" else 4
-            n = b * h * w
-            flops = 2.0 * 9 * cin * cout * n
-            t_ops = flops / PEAK_FLOPS[name] * 1e3
-            dx_bytes = (n * cout + 9 * cin * cout) * dsize + n * cin * 4
-            dk_bytes = (n * cin + n * cout) * dsize + 9 * cin * cout * 4
-            t_dx_bytes = dx_bytes / PEAK_BYTES * 1e3
-            t_dk_bytes = dk_bytes / PEAK_BYTES * 1e3
-            row = {"phase": "kernel_bwd", "dtype": name, "x": [b, cin, h, w],
-                   "cout": cout, "launches_per_step": per_step,
-                   "fwd_max_abs_err": fwd_abs, "fwd_max_rel_err": fwd_rel,
-                   "dx_max_abs_err": dx_abs, "dx_max_rel_err": dx_rel,
-                   "dk_max_rel_err": dk_rel,
-                   "dx_ms": dx_ms, "dx_plain_ms": plain_ms,
-                   "dx_library_ms": lib_dx_ms, "dk_ms": dk_ms,
-                   "dk_library_ms": lib_dk_ms, "fwd_ms": fwd_ms,
-                   "dx_bound_ms": max(t_ops, t_dx_bytes),
-                   "dk_bound_ms": max(t_ops, t_dk_bytes),
-                   "ops_ms": t_ops, "dx_bytes_ms": t_dx_bytes,
-                   "gflop": flops / 1e9, "dx_tflops": flops / dx_ms / 1e9,
-                   "dk_tflops": flops / dk_ms / 1e9}
-            emit(row)
-            rows.append(row)
+        name, dt = "float32", torch.float32
+        with torch.no_grad():
+            cl = torch.channels_last
+            xl = x.to(dt).contiguous(memory_format=cl)
+            dyl = dy.to(dt).contiguous(memory_format=cl)
+            w9 = conv.tap_major(wt, dt)
+            w9_dx = conv.tap_major(conv.flip_swap(wt), dt)
+            wl = wt.to(dt).contiguous(memory_format=cl)
+            conv.launches = 0
+            y = conv.launch_kernel(xl, w9)
+            dx = conv.launch_kernel(dyl, w9_dx)
+            dk = conv.dk_product(xl, dyl)
+            torch.cuda.synchronize()
+            expect_launches(conv.launches, 2, "one forward and one dx")
+            want_y = conv.conv3x3_halo_plain(x, wt, dt)
+            want_dx, want_dk = conv.conv3x3_halo_bwd_plain(x, wt, dy, dt)
+            fwd_abs = (y - want_y).abs().max().item()
+            fwd_rel = rel_err(y, want_y)
+            dx_abs = (dx - want_dx).abs().max().item()
+            dx_rel = rel_err(dx, want_dx)
+            dk_rel = rel_err(dk, want_dk)
+            if not fwd_rel <= KERNEL_TOL or not dx_rel <= KERNEL_TOL \
+                    or not dk_rel <= DK_TOL[name]:
+                raise AssertionError(
+                    f"conv3x3_halo {name} {(b, cin, h, w)}->{cout}: "
+                    f"forward error {fwd_rel:.3e}, dx error {dx_rel:.3e} "
+                    f"(limit {KERNEL_TOL}), dk error {dk_rel:.3e} "
+                    f"(limit {DK_TOL[name]})")
+            del y, dx, dk, want_y, want_dx, want_dk
+            t = lambda fn: time_ms(fn, torch, min_ms=50.0)  # noqa: E731
+            dx_ms = t(lambda: conv.launch_kernel(dyl, w9_dx))
+            dk_ms = t(lambda: conv.dk_product(xl, dyl))
+            fwd_ms = t(lambda: conv.launch_kernel(xl, w9))
+            plain_ms = t(lambda: conv.conv3x3_halo_plain(
+                dy, conv.flip_swap(wt), dt))
+            lib_dx_ms = t(lambda: torch.nn.grad.conv2d_input(
+                xl.shape, wl, dyl, padding=1))
+            lib_dk_ms = t(lambda: torch.nn.grad.conv2d_weight(
+                xl, wl.shape, dyl, padding=1))
+            del xl, dyl, w9, w9_dx, wl
+        dsize = 4                        # fp32 operands
+        n = b * h * w
+        flops = 2.0 * 9 * cin * cout * n
+        t_ops = flops / PEAK_FLOPS[name] * 1e3
+        dx_bytes = (n * cout + 9 * cin * cout) * dsize + n * cin * 4
+        dk_bytes = (n * cin + n * cout) * dsize + 9 * cin * cout * 4
+        t_dx_bytes = dx_bytes / PEAK_BYTES * 1e3
+        t_dk_bytes = dk_bytes / PEAK_BYTES * 1e3
+        row = {"phase": "kernel_bwd", "dtype": name, "x": [b, cin, h, w],
+               "cout": cout, "launches_per_step": per_step,
+               "fwd_max_abs_err": fwd_abs, "fwd_max_rel_err": fwd_rel,
+               "dx_max_abs_err": dx_abs, "dx_max_rel_err": dx_rel,
+               "dk_max_rel_err": dk_rel,
+               "dx_ms": dx_ms, "dx_plain_ms": plain_ms,
+               "dx_library_ms": lib_dx_ms, "dk_ms": dk_ms,
+               "dk_library_ms": lib_dk_ms, "fwd_ms": fwd_ms,
+               "dx_bound_ms": max(t_ops, t_dx_bytes),
+               "dk_bound_ms": max(t_ops, t_dk_bytes),
+               "ops_ms": t_ops, "dx_bytes_ms": t_dx_bytes,
+               "gflop": flops / 1e9, "dx_tflops": flops / dx_ms / 1e9,
+               "dk_tflops": flops / dk_ms / 1e9}
+        emit(row)
+        rows.append(row)
         del x, wt, dy
     torch.cuda.empty_cache()
     return rows
 
 
-def conv_bound(n, cin, cout):
+def conv_bound(n, cin, cout, dtype="bfloat16"):
     """(bound ms, ops ms, bytes ms) of one SAME 3x3 conv over ``n`` pixels
-    with bf16 operands and an fp32 output: input and weight read once,
-    output written once."""
-    t_ops = 2.0 * 9 * cin * cout * n / PEAK_FLOPS["bfloat16"] * 1e3
-    t_bytes = ((n * cin + 9 * cin * cout) * 2 + n * cout * 4) \
+    with ``dtype`` operands (bf16 or fp32) and an fp32 output: input and
+    weight read once, output written once."""
+    size = 2 if dtype == "bfloat16" else 4
+    t_ops = 2.0 * 9 * cin * cout * n / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = ((n * cin + 9 * cin * cout) * size + n * cout * 4) \
         / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), t_ops, t_bytes
 
@@ -527,13 +526,12 @@ def plan_fields(v2, resources, b, h, w, cin, cout, prefix=""):
                   f"{prefix}spill_bytes": got.get("spill_bytes")}
 
 
-def phase_conv_v2_kernel(torch, F, conv, v2, cfg, k1_rows, k1_bwd_rows):
+def phase_conv_v2_kernel(torch, F, conv, v2, cfg):
     """Kernel 4 (conv_v2) against ``conv_v2_plain``: forward at every
     eval-path shape (B=8 512x768), the bf16 conv Function's forward, dx and
     dk at every training shape (B=8 256x256), forward at
-    ``bench_pallas_v2.py``'s shapes; returns per-shape rows. Kernel 1's
-    bf16 times at the same shapes come from ``k1_rows``/``k1_bwd_rows``
-    (the same call). Each row also has the wrapper's operand copies timed
+    ``bench_pallas_v2.py``'s shapes; returns per-shape rows. Each row also
+    has the wrapper's operand copies timed
     alone (``pad_ms``: ``padded_operands``, part of ``ms``), the launch
     plan and the kernel's registers and spills from the build log."""
     rows = []
@@ -541,10 +539,6 @@ def phase_conv_v2_kernel(torch, F, conv, v2, cfg, k1_rows, k1_bwd_rows):
     cl = torch.channels_last
     bf16 = torch.bfloat16
     gen = torch.Generator(device=DEV).manual_seed(4)
-    k1 = {(tuple(r["x"]), r["cout"]): r for r in k1_rows
-          if r["dtype"] == "bfloat16"}
-    k1_bwd = {(tuple(r["x"]), r["cout"]): r for r in k1_bwd_rows
-              if r["dtype"] == "bfloat16"}
 
     def forward_row(path, b, cin, h, w, cout, per_step):
         x = torch.randn(b, cin, h, w, device=DEV, generator=gen)
@@ -568,9 +562,6 @@ def phase_conv_v2_kernel(torch, F, conv, v2, cfg, k1_rows, k1_bwd_rows):
             pad_ms = time_ms(lambda: v2.padded_operands(xl, w9, plan), torch)
             plain_ms = time_ms(lambda: v2.conv_v2_plain(x, wt), torch)
             lib_ms = time_ms(lambda: F.conv2d(xl, wl, padding=1), torch)
-            key = ((b, cin, h, w), cout)
-            k1_ms = k1[key]["ms"] if key in k1 else time_ms(
-                lambda: conv.launch_kernel(xl, w9), torch)
         bound, t_ops, t_bytes = conv_bound(b * h * w, cin, cout)
         flops = 2.0 * 9 * cin * cout * b * h * w
         row = {"phase": "conv_v2_kernel", "path": path, "x": [b, cin, h, w],
@@ -578,7 +569,7 @@ def phase_conv_v2_kernel(torch, F, conv, v2, cfg, k1_rows, k1_bwd_rows):
                "max_abs_err": abs_err, "max_rel_err": rel, "ms": ms,
                "tflops": flops / ms / 1e9, "pad_ms": pad_ms, **fields,
                "plain_ms": plain_ms,
-               "library_ms": lib_ms, "conv3x3_halo_bf16_ms": k1_ms,
+               "library_ms": lib_ms,
                "bound_ms": bound, "ops_ms": t_ops, "bytes_ms": t_bytes,
                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                "gflop": flops / 1e9}
@@ -641,7 +632,6 @@ def phase_conv_v2_kernel(torch, F, conv, v2, cfg, k1_rows, k1_bwd_rows):
         n_px = b * h * w
         dx_bound, t_ops, dx_bytes = conv_bound(n_px, cout, cin)
         fwd_bound = conv_bound(n_px, cin, cout)[0]
-        k1r = k1_bwd[((b, cin, h, w), cout)]
         row = {"phase": "conv_v2_kernel", "path": "train", "x": [b, cin, h, w],
                "cout": cout, "launches_per_step": n,
                "fwd_max_abs_err": fwd_abs, "fwd_max_rel_err": fwd_rel,
@@ -650,8 +640,6 @@ def phase_conv_v2_kernel(torch, F, conv, v2, cfg, k1_rows, k1_bwd_rows):
                "pad_ms": pad_ms, "dx_pad_ms": dx_pad_ms, **fields,
                **dx_fields,
                "dx_plain_ms": plain_ms, "dx_library_ms": lib_dx_ms,
-               "conv3x3_halo_bf16_fwd_ms": k1r["fwd_ms"],
-               "conv3x3_halo_bf16_dx_ms": k1r["dx_ms"],
                "fwd_bound_ms": fwd_bound, "dx_bound_ms": dx_bound,
                "ops_ms": t_ops, "dx_bytes_ms": dx_bytes,
                "gflop": 2.0 * 9 * cin * cout * n_px / 1e9,
@@ -752,7 +740,10 @@ def phase_train_parity(torch, np, pkg, conv):
 
 def phase_main(torch, np, pkg, counts):
     """bf16 flagship at B=8 512x768 with the lambda=2000 weights: every
-    dense 3x3 conv through conv_v2, none through conv3x3_halo."""
+    dense 3x3 conv through conv_v2, none through conv3x3_halo. Then the
+    same batch through the fp32 codec (TF32 off), timed as the bf16 steps
+    are: every dense 3x3 conv through conv3x3_halo, none through conv_v2;
+    one more fp32 step profiled."""
     cfg = pkg.config.flagship_config(dtype="bfloat16")
     imgs = pkg.data.synthetic_natural_images(B, W, seed=0)
     batch = torch.from_numpy(np.stack(imgs)[:, :H]).permute(0, 3, 1, 2)
@@ -787,14 +778,29 @@ def phase_main(torch, np, pkg, counts):
         raise AssertionError(f"xhat shape {tuple(xhat.shape)}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    # the same batch through the fp32 codec: bf16 must stay close
+    # the same batch through the fp32 codec (the default config's dtype):
+    # timed like the bf16 steps, and bf16 must stay close to it
     cfg32 = pkg.config.flagship_config()
+    step32 = pkg.state.make_eval_step(cfg32, load_model(cfg32, pkg), DEV)
     with tf32_off(torch):
-        out32, xhat32 = pkg.state.make_eval_step(
-            cfg32, load_model(cfg32, pkg), DEV)(batch)
+        step32(batch)                 # warm-up
+        torch.cuda.synchronize()
+        counts.reset()
+        times32 = []
+        for _ in range(STEPS):
+            t0 = time.perf_counter()
+            out32, xhat32 = step32(batch)
+            torch.cuda.synchronize()
+            times32.append(time.perf_counter() - t0)
+        launches32 = counts.read()
+        expect_launches(launches32, launches_of(conv=STEPS * expected),
+                        f"{STEPS} fp32 eval steps")
+        ms32 = [t * 1e3 for t in times32]
+        phase_profile(torch, lambda: step32(batch), sum(ms32) / len(ms32),
+                      "profile_fp32")
     bpp32 = float(out32.rate1 + out32.rate2)
     psnr32 = float(pkg.loss.psnr(xs, xhat32))
-    del out32, xhat32
+    del out32, xhat32, step32
 
     ms = [t * 1e3 for t in times]
     res = {"phase": "main", "config": "flagship_lam2000", "dtype": "bfloat16",
@@ -807,7 +813,14 @@ def phase_main(torch, np, pkg, counts):
            "warmup_s": warm_s, "peak_mem_gb": peak_gb,
            "launches": launches,
            "conv_v2_launches_per_step": launches["conv_v2"] / STEPS,
-           "fp32_bpp": bpp32, "fp32_psnr_db": psnr32}
+           "fp32_bpp": bpp32, "fp32_psnr_db": psnr32,
+           "fp32_ms_per_step": sum(ms32) / len(ms32),
+           "fp32_ms_per_step_min": min(ms32), "fp32_ms_per_step_all": ms32,
+           "fp32_mp_per_s": B * H * W / 1e6 / (sum(times32) / len(times32)),
+           "fp32_launches": launches32,
+           "fp32_conv3x3_halo_launches_per_step":
+           launches32["conv3x3_halo"] / STEPS,
+           "fp32_expected_launches_per_step": expected}
     emit(res)
     if not abs(bpp - bpp32) <= BF16_BPP_RTOL * bpp32 \
             or not abs(psnr - psnr32) <= BF16_PSNR_TOL:
@@ -1673,10 +1686,10 @@ def kernel_entries(conv, v2, lift97, rows, bwd_rows, v2_rows, lift_rows,
         return "operations" if per(rows_, ops) >= per(rows_, nbytes) \
             else "bytes"
 
-    k1_32, k1_16 = by(rows, dtype="float32"), by(rows, dtype="bfloat16")
-    b1_32 = by(bwd_rows, dtype="float32")
+    k1_32, b1_32 = rows, bwd_rows        # fp32 operands
     v2_eval, v2_train = by(v2_rows, path="eval"), by(v2_rows, path="train")
     fp32 = {"parity": res["parity"], "train_parity": res["train_parity"][0],
+            "main_fp32": res["main"]["fp32_launches"]["conv3x3_halo"],
             "bitstream": res["bitstream_launches"],
             "agent": res["agent"]["first_run"]["launches"]["conv3x3_halo"],
             "agent_test": res["agent_test"]["launches"]["conv3x3_halo"]}
@@ -1696,9 +1709,7 @@ def kernel_entries(conv, v2, lift97, rows, bwd_rows, v2_rows, lift_rows,
                            + [r["fwd_max_abs_err"] for r in bwd_rows]),
         "dtype": "float32", "ms": per(k1_32, "ms"),
         "plain_ms": per(k1_32, "plain_ms"), "bound_ms": per(k1_32, "bound_ms"),
-        "bound_by": bound_by(k1_32), "library_ms": per(k1_32, "library_ms"),
-        "bf16_ms": per(k1_16, "ms"), "bf16_bound_ms": per(k1_16, "bound_ms"),
-        "bf16_library_ms": per(k1_16, "library_ms")}, {
+        "bound_by": bound_by(k1_32), "library_ms": per(k1_32, "library_ms")}, {
         "name": "conv3x3_halo_dx", "route": "cuda",
         "source": os.path.relpath(conv.SOURCE, HERE),
         "replaces": tpu + "ops/pallas_conv.py:137",
@@ -1723,7 +1734,6 @@ def kernel_entries(conv, v2, lift97, rows, bwd_rows, v2_rows, lift_rows,
         "plain_ms": per(v2_eval, "plain_ms"),
         "bound_ms": per(v2_eval, "bound_ms"), "bound_by": bound_by(v2_eval),
         "library_ms": per(v2_eval, "library_ms"),
-        "conv3x3_halo_bf16_ms": per(v2_eval, "conv3x3_halo_bf16_ms"),
         "train_step_fwd_ms": per(v2_train, "fwd_ms"),
         "train_step_dx_ms": per(v2_train, "dx_ms"),
         "train_step_dx_plain_ms": per(v2_train, "dx_plain_ms"),
@@ -1793,8 +1803,7 @@ def main() -> int:
     with tf32_off(torch):
         rows = phase_kernel(torch, F, conv, cfg)
         bwd_rows = phase_kernel_bwd(torch, conv, cfg)
-        v2_rows = phase_conv_v2_kernel(torch, F, conv, v2, cfg, rows,
-                                       bwd_rows)
+        v2_rows = phase_conv_v2_kernel(torch, F, conv, v2, cfg)
         res["parity"] = phase_parity(torch, pkg, conv)
     with tf32_off(torch, deterministic=True):
         res["train_parity"] = phase_train_parity(torch, numpy, pkg, conv)
@@ -1842,34 +1851,33 @@ def main() -> int:
     phase_agent(torch, pkg, counts, CDF97_CONFIG, CDF97_AGENT,
                 reckon_cdf97_agent, reckon_coding, "cdf97_agent")
 
-    bf16 = [r for r in rows if r["dtype"] == "bfloat16"]
-    bwd16 = [r for r in bwd_rows if r["dtype"] == "bfloat16"]
     v2_eval = [r for r in v2_rows if r["path"] == "eval"]
     v2_train = [r for r in v2_rows if r["path"] == "train"]
 
-    def per_step(key, rows=bf16):
+    def per_step(key, rows=rows):
         return sum(r[key] * r["launches_per_step"] for r in rows)
 
     emit({"phase": "kernel_per_step", "kernel": "conv3x3_halo",
-          "dtype": "bfloat16",
-          "launches": sum(r["launches_per_step"] for r in bf16),
-          "tflop": sum(r["gflop"] * r["launches_per_step"] for r in bf16)
-          / 1e3,
+          "dtype": "float32",
+          "launches": sum(r["launches_per_step"] for r in rows),
+          "tflop": per_step("gflop") / 1e3,
           "ms": per_step("ms"), "plain_ms": per_step("plain_ms"),
           "library_ms": per_step("library_ms"),
-          "bound_ms": per_step("bound_ms")})
+          "bound_ms": per_step("bound_ms"),
+          "share_of_fp32_step": per_step("ms")
+          / main_res["fp32_ms_per_step"]})
     emit({"phase": "kernel_per_train_step", "kernel": "conv3x3_halo",
-          "dtype": "bfloat16",
-          "launches": 2 * sum(r["launches_per_step"] for r in bwd16),
-          "tflop_each_of_fwd_dx_dk": per_step("gflop", bwd16) / 1e3,
-          "fwd_ms": per_step("fwd_ms", bwd16),
-          "dx_ms": per_step("dx_ms", bwd16),
-          "dx_plain_ms": per_step("dx_plain_ms", bwd16),
-          "dx_library_ms": per_step("dx_library_ms", bwd16),
-          "dx_bound_ms": per_step("dx_bound_ms", bwd16),
-          "dk_ms": per_step("dk_ms", bwd16),
-          "dk_library_ms": per_step("dk_library_ms", bwd16),
-          "dk_bound_ms": per_step("dk_bound_ms", bwd16)})
+          "dtype": "float32",
+          "launches": 2 * sum(r["launches_per_step"] for r in bwd_rows),
+          "tflop_each_of_fwd_dx_dk": per_step("gflop", bwd_rows) / 1e3,
+          "fwd_ms": per_step("fwd_ms", bwd_rows),
+          "dx_ms": per_step("dx_ms", bwd_rows),
+          "dx_plain_ms": per_step("dx_plain_ms", bwd_rows),
+          "dx_library_ms": per_step("dx_library_ms", bwd_rows),
+          "dx_bound_ms": per_step("dx_bound_ms", bwd_rows),
+          "dk_ms": per_step("dk_ms", bwd_rows),
+          "dk_library_ms": per_step("dk_library_ms", bwd_rows),
+          "dk_bound_ms": per_step("dk_bound_ms", bwd_rows)})
     emit({"phase": "conv_v2_per_step", "dtype": "bfloat16",
           "launches": sum(r["launches_per_step"] for r in v2_eval),
           "tflop": sum(r["gflop"] * r["launches_per_step"] for r in v2_eval)
@@ -1878,7 +1886,6 @@ def main() -> int:
           "plain_ms": per_step("plain_ms", v2_eval),
           "library_ms": per_step("library_ms", v2_eval),
           "bound_ms": per_step("bound_ms", v2_eval),
-          "conv3x3_halo_bf16_ms": per_step("conv3x3_halo_bf16_ms", v2_eval),
           "share_of_step": per_step("ms", v2_eval) / main_res["ms_per_step"],
           "train_step_fwd_ms": per_step("fwd_ms", v2_train),
           "train_step_dx_ms": per_step("dx_ms", v2_train),

@@ -10,7 +10,8 @@ arguments, and parameter names that follow the flax tree
 
 The dense 3x3 convolutions of the main path run through hand-written CUDA
 kernels on the GPU, forward and backward (``ops/conv3x3_halo.py``: fp32
-operands in ``csrc/conv3x3_halo.cu``, bf16 operands in the tensor-core
+operands in the register-tiled CUDA-core ``csrc/conv3x3_halo.cu``, exact
+fp32 FFMAs fed by a ``cp.async`` ring; bf16 operands in the tensor-core
 ``csrc/conv_v2.cu``), and through their plain PyTorch versions on the CPU.
 The real bitstream codes with the host C++ of ``csrc/*.cpp``.
 

@@ -11,8 +11,12 @@ CUDA tensor it picks the kernel by operand type, for the forward and for dx
 alike: bf16 operands run the tensor-core implicit GEMM of
 ``csrc/conv_v2.cu`` (:mod:`.conv_v2`, the counterpart of
 ``scripts/bench_pallas_v2.py::conv_v2``); fp32 operands run this module's
-CUDA-core kernel, ``csrc/conv3x3_halo.cu``. Either is built at first use by
-:mod:`.nvcc`, or the call raises: it never falls back to another path.
+kernel, ``csrc/conv3x3_halo.cu``: exact fp32 FFMAs on the CUDA cores,
+register-tiled (8 pixels x 8 to 16 channels a thread, 4 x 8 on small
+grids) and fed by a cp.async ring, whose geometry :func:`launch_plan`
+computes here. Either is built at first
+use by :mod:`.nvcc`, or the call raises: it never falls back to another
+path.
 
 - forward, on a CUDA tensor: the kernel of the operand type. On a CPU
   tensor: :func:`conv3x3_halo_plain`, a plain ``F.conv2d`` in fp32 on
@@ -22,7 +26,7 @@ CUDA-core kernel, ``csrc/conv3x3_halo.cu``. Either is built at first use by
   **dx** is the same conv of ``dy`` with the spatially flipped, in/out
   swapped weight: on a CUDA tensor the same kernel with Cin and Cout
   swapped (a 3->96 layer's dx is a 96->3 conv and takes the kernel's narrow
-  Cout tile). **dk** is, as in the JAX package, not a kernel: the nine
+  N tile). **dk** is, as in the JAX package, not a kernel: the nine
   shifted views of the zero-padded input against ``dy``, operands in
   ``dtype``, fp32 sums and an fp32 result (one matrix product).
   On a CPU tensor both are :func:`conv3x3_halo_bwd_plain`.
@@ -39,7 +43,9 @@ back to show which path it went through.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -53,10 +59,124 @@ launches = 0     # kernel launches; callers reset it to 0 before a counted run
 launches_dx = 0  # those of them that computed a dx (fp32 operands only)
 
 
+# The kernel's geometry (csrc/conv3x3_halo.cu keeps the same constants).
+KC = 8                # input channels a ring stage holds
+SMEM_MAX = 232_448    # dynamic shared memory a block may have on sm_90
+MAX_STAGES = 3
+# (N tile, small grid) -> (channels a thread, pixels a thread, rows, column
+# groups) of a block: one thread per (n_tile / channels, row, column group)
+TILES = {(8, False): (8, 8, 8, 8), (32, False): (8, 8, 8, 8),
+         (64, False): (8, 8, 8, 4), (96, False): (12, 8, 8, 4),
+         (128, False): (16, 8, 8, 4),
+         (8, True): (8, 4, 8, 4), (32, True): (8, 4, 4, 4)}
+N_TILES = (8, 32, 64, 96, 128)
+# Fewer blocks than an H100 SXM has SMs leave SMs idle: such layers take the
+# small tiles (4 pixels x 8 channels a thread, 32 or 64 threads a block).
+SMALL_GRID = 132
+
+
 def _declare(lib: ctypes.CDLL) -> None:
     fn = lib.conv3x3_halo_fwd
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 12 \
+        + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+
+
+class Plan(NamedTuple):
+    """One launch's geometry. A block computes ``tile_h`` output rows x
+    ``tile_w`` columns x ``n_tile`` output channels of one image with
+    ``threads`` threads; the grid is ``grid`` = (pixel tiles, N tiles,
+    batch). ``vec_x``: x comes by 16-byte copies (else 4-byte ones); the
+    weight, packed by :func:`pack_weight`, always does."""
+    cin: int
+    cout: int
+    small: bool       # the small-grid tiles
+    n_tile: int
+    n_tiles: int
+    tile_h: int
+    tile_w: int
+    threads: int
+    chunks: int       # ring steps of KC input channels (the last may be short)
+    stages: int
+    stage_bytes: int
+    smem_bytes: int
+    vec_x: bool
+    grid: tuple
+
+
+def halo_cols(tile_w: int) -> int:
+    """Pixels of a staged halo row: tile_w + 2, and an empty one after every
+    8 (so the 8-column groups of a row fall on different banks)."""
+    return tile_w + 2 + (tile_w + 1) // 8
+
+
+def stage_bytes(n_tile: int, tile_h: int, tile_w: int) -> int:
+    """One ring stage: the halo of KC channels as groups of 4 channels
+    (16 bytes a pixel) and the weights of 9 taps x KC channels x the N
+    tile."""
+    return (KC // 4) * (tile_h + 2) * halo_cols(tile_w) * 16 \
+        + 9 * KC * n_tile * 4
+
+
+def epilogue_bytes(n_tile: int, tile_h: int, tile_w: int) -> int:
+    """The output tile staged for coalesced stores: a row of n_tile + 4
+    floats a pixel."""
+    return tile_h * tile_w * (n_tile + 4) * 4
+
+
+def pick_n_tile(cout: int) -> int:
+    """The N tile: the one whose tiles cover Cout at the least cost, each
+    tile counting its channels and 32 more for staging its halo again
+    (Cout 96 -> 96, 192 -> 2 x 96, 243 -> 2 x 128); ties go to the wider
+    tile."""
+    return min(N_TILES, key=lambda n: (-(-cout // n) * (n + 32), -n))
+
+
+@functools.lru_cache(maxsize=1024)
+def launch_plan(b: int, h: int, w: int, cin: int, cout: int,
+                x_aligned: bool = True) -> Plan:
+    """The kernel's geometry for x (b, cin, h, w) -> cout channels;
+    ``x_aligned``: x's storage starts on a 16-byte boundary."""
+    n_tile = pick_n_tile(cout)
+    co, px, rows, cgroups = TILES[n_tile, False]
+    small = -(-h // rows) * -(-w // (px * cgroups)) * -(-cout // n_tile) \
+        * b < SMALL_GRID
+    if small:
+        n_tile = 8 if cout <= 8 else 32
+        co, px, rows, cgroups = TILES[n_tile, True]
+    tile_w = px * cgroups
+    chunks = -(-cin // KC)
+    stage = stage_bytes(n_tile, rows, tile_w)
+    # N tile 8 (narrow Cout, 32- or 64-thread blocks): 2 stages, so that
+    # more of its blocks share an SM
+    stages = 2 if n_tile == 8 else min(MAX_STAGES, max(2, chunks),
+                                       SMEM_MAX // stage)
+    smem = max(stages * stage, epilogue_bytes(n_tile, rows, tile_w))
+    grid = (-(-h // rows) * -(-w // tile_w), -(-cout // n_tile), b)
+    return Plan(cin, cout, small, n_tile, grid[1], rows, tile_w,
+                n_tile // co * rows * cgroups,
+                chunks, stages, stage, smem, cin % 4 == 0 and x_aligned, grid)
+
+
+def pack_weight(wt: torch.Tensor, plan: Plan) -> torch.Tensor:
+    """The weight, tap-major (9, Cin, Cout) or in PyTorch's layout (Cout,
+    Cin, 3, 3), as the kernel's ring stages hold it: (n_tiles, chunks, 9,
+    KC, n_tile), each (N tile, chunk) one contiguous run of 9 x KC x n_tile
+    floats, zeros past Cin and Cout (they add nothing to the sums). The
+    kernel then copies a chunk's weights with plain 16-byte copies: no
+    bounds, no gather. From PyTorch's layout it takes one copy, two where
+    Cin or Cout is padded."""
+    dims = (plan.chunks, KC, plan.n_tiles, plan.n_tile)
+    pad_c = plan.chunks * KC - plan.cin
+    pad_o = plan.n_tiles * plan.n_tile - plan.cout
+    if wt.dim() == 3:
+        if pad_c or pad_o:
+            wt = F.pad(wt, (0, pad_o, 0, pad_c))
+        return wt.reshape(9, *dims).permute(3, 1, 0, 2, 4).contiguous()
+    if pad_c or pad_o:
+        wt = F.pad(wt, (0, 0, 0, 0, 0, pad_c, 0, pad_o))
+    return wt.reshape(*dims[2:], *dims[:2], 9).permute(
+        0, 2, 4, 3, 1).contiguous()
 
 
 LIBRARY = nvcc.Library(SOURCE, _declare)
@@ -77,35 +197,41 @@ def conv3x3_halo_plain(x: torch.Tensor, weight: torch.Tensor,
 
 
 def launch_kernel(x: torch.Tensor, wt: torch.Tensor) -> torch.Tensor:
-    """Run the kernel on NHWC-stored ``x`` (B,Cin,H,W) and tap-major
-    ``wt`` (9,Cin,Cout); returns fp32 (B,Cout,H,W) in channels_last."""
+    """Run the kernel on fp32 NHWC-stored ``x`` (B,Cin,H,W) and the fp32
+    weight ``wt``, tap-major (9,Cin,Cout) or in PyTorch's layout
+    (Cout,Cin,3,3); returns fp32 (B,Cout,H,W) in channels_last. bf16
+    operands are refused: on the card they go to :mod:`.conv_v2`."""
     global launches
+    if x.dtype != torch.float32 or wt.dtype != torch.float32:
+        raise ValueError(f"conv3x3_halo kernel: operands must be fp32, got "
+                         f"{x.dtype} and {wt.dtype} (bf16 operands run "
+                         f"conv_v2)")
     if x.device.type != "cuda" or wt.device != x.device:
         raise ValueError("conv3x3_halo kernel: x and weight must be on the "
                          "same CUDA device")
-    if x.dtype not in OPERAND_DTYPES or wt.dtype != x.dtype:
-        raise ValueError(f"conv3x3_halo kernel: operands must both be fp32 or "
-                         f"bf16, got {x.dtype} and {wt.dtype}")
-    if x.dim() != 4 or wt.dim() != 3 or wt.shape[0] != 9 \
+    tap = wt.dim() == 3 and wt.shape[0] == 9
+    torch_layout = wt.dim() == 4 and wt.shape[2:] == (3, 3)
+    if x.dim() != 4 or not (tap or torch_layout) \
             or wt.shape[1] != x.shape[1]:
         raise ValueError(f"conv3x3_halo kernel: bad shapes {tuple(x.shape)} "
                          f"and {tuple(wt.shape)}")
-    if not x.is_contiguous(memory_format=torch.channels_last) \
-            or not wt.is_contiguous():
-        raise ValueError("conv3x3_halo kernel: x must be channels_last and "
-                         "the weight contiguous")
+    if not x.is_contiguous(memory_format=torch.channels_last):
+        raise ValueError("conv3x3_halo kernel: x must be channels_last")
     b, cin, h, w = x.shape
-    cout = wt.shape[2]
+    cout = wt.shape[2] if tap else wt.shape[0]
     if min(b, cin, h, w, cout) < 1:
         raise ValueError(f"conv3x3_halo kernel: empty shape {tuple(x.shape)}")
+    plan = launch_plan(b, h, w, cin, cout, x.data_ptr() % 16 == 0)
     y = torch.empty((b, cout, h, w), device=x.device, dtype=torch.float32,
                     memory_format=torch.channels_last)
     lib = build()
     with torch.cuda.device(x.device):
+        wp = pack_weight(wt, plan)
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.conv3x3_halo_fwd(x.data_ptr(), wt.data_ptr(), y.data_ptr(),
-                                   b, h, w, cin, cout,
-                                   int(x.dtype == torch.bfloat16), stream)
+        err = lib.conv3x3_halo_fwd(
+            x.data_ptr(), wp.data_ptr(), y.data_ptr(), b, h, w, cin, cout,
+            plan.n_tile, plan.n_tiles, plan.tile_w, plan.stages,
+            plan.smem_bytes, int(plan.vec_x), plan.grid[0], stream)
     if err != 0:
         raise RuntimeError(f"conv3x3_halo kernel launch failed: cudaError {err}")
     launches += 1
@@ -180,7 +306,7 @@ class _Conv3x3Halo(torch.autograd.Function):
             return conv3x3_halo_plain(xq, weight, dtype)
         if dtype == torch.bfloat16:
             return conv_v2.launch_kernel(xq, tap_major(weight, dtype))
-        return launch_kernel(xq, tap_major(weight, dtype))
+        return launch_kernel(xq, weight.to(dtype))
 
     @staticmethod
     def backward(ctx, dy):
@@ -196,11 +322,11 @@ class _Conv3x3Halo(torch.autograd.Function):
             return (dx if need_dx else None, dk if need_dk else None, None)
         dyq = dy.to(dtype).contiguous(memory_format=torch.channels_last)
         if need_dx:
-            w9 = tap_major(flip_swap(weight), dtype)
             if dtype == torch.bfloat16:
-                dx = conv_v2.launch_kernel(dyq, w9, dx=True)
+                dx = conv_v2.launch_kernel(
+                    dyq, tap_major(flip_swap(weight), dtype), dx=True)
             else:
-                dx = launch_kernel(dyq, w9)
+                dx = launch_kernel(dyq, flip_swap(weight).to(dtype))
                 launches_dx += 1
             dx = dx.to(ctx.x_dtype)
         if need_dk:

@@ -57,9 +57,10 @@ class Conv2d(nn.Module):
 
 class FastConv3x3(nn.Module):
     """Dense SAME 3x3 conv through ``conv3x3_halo`` (fp32 output, fp32 bias
-    added after). ``dtype=None`` runs fp32 operands: on the card the kernel
-    of ``csrc/conv3x3_halo.cu``; ``dtype=bfloat16`` runs bf16 operands: on
-    the card the tensor-core kernel of ``csrc/conv_v2.cu``."""
+    added after). ``dtype=None`` runs fp32 operands: on the card the
+    register-tiled kernel of ``csrc/conv3x3_halo.cu`` (exact fp32 FFMAs on
+    the CUDA cores); ``dtype=bfloat16`` runs bf16 operands: on the card the
+    tensor-core kernel of ``csrc/conv_v2.cu``."""
 
     def __init__(self, cin: int, cout: int, dtype=None):
         super().__init__()

@@ -1,7 +1,9 @@
-"""Time the bf16 3x3 conv kernel (``ops/conv_v2.py``) at every shape of the
-main path, on one CUDA card.
+"""Time a 3x3 conv kernel of the port at every shape of the main path, on
+one CUDA card: the bf16 tensor-core kernel (``ops/conv_v2.py``, the
+default) or, with ``--kernel conv3x3_halo``, the fp32 CUDA-core kernel
+(``ops/conv3x3_halo.py``) on fp32 operands.
 
-    python imagecompressionlearnedliftingandlearnedtreebasedmodels_torch/tools/conv_v2_bench.py [--root DIR]
+    python imagecompressionlearnedliftingandlearnedtreebasedmodels_torch/tools/conv_v2_bench.py [--kernel conv_v2|conv3x3_halo] [--root DIR]
 
 ``--root`` names the checkout whose port package (and ``chip_smoke.py``,
 for the shapes) is imported: by default the one this file lies in. So two
@@ -9,20 +11,24 @@ versions of the kernel compare on one card by timing a copy of another
 commit (``git archive`` into a directory) and this one in turns, e.g.
 other, this, this, other.
 
-Shapes: every dense 3x3 conv of the flagship's bf16 B=8 512x768 eval step
+Shapes: every dense 3x3 conv of the flagship's B=8 512x768 eval step
 (forward) and of its B=8 256x256 train step (forward and dx, the dx as the
 same kernel on Cin and Cout swapped), each with its launches a step. For
 each: the kernel's ms by CUDA events around repeated launches through the
-wrapper (``launch_kernel``: the padding copies, the host's work and the
+wrapper (``launch_kernel``: any padding copies, the host's work and the
 kernel, what a caller pays), its device microseconds alone from
-torch.profiler, the wrapper's host microseconds a call, its error against
-``conv_v2_plain``, cuDNN's ``F.conv2d`` ms (the yardstick) and the bound
-(``chip_smoke.conv_bound``). One JSON line a shape, then the sums a step.
+torch.profiler (the kernels named ``conv_v2_kernel`` or
+``conv3x3_halo_kernel``), the wrapper's host microseconds a call, its error
+against the plain version, cuDNN's ``F.conv2d`` ms in the same operand
+type (the yardstick; TF32 off for fp32) and the bound (``conv_bound`` of
+this file's checkout's ``chip_smoke.py``). One JSON line a shape, then the
+sums a step.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import os
 import subprocess
@@ -30,20 +36,25 @@ import sys
 import time
 
 
-def device_us(torch, fn, reps=10):
-    """Mean device microseconds of the kernels named ``conv_v2_kernel`` in
-    one call of ``fn``, from torch.profiler."""
+def device_us(torch, fn, kernel, reps=10, tries=3):
+    """Mean device microseconds of the kernels whose name holds ``kernel``
+    in one call of ``fn``, from torch.profiler. A trace that holds no such
+    kernel (the profiler drops one now and then) is taken again, up to
+    ``tries`` times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and "conv_v2_kernel" in e.key) / reps
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and kernel in e.key) / reps
+        if us > 0:
+            break
+    return us
 
 
 def host_us(torch, fn, reps=200):
@@ -63,8 +74,17 @@ def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(here)))
+    ap.add_argument("--kernel", choices=("conv_v2", "conv3x3_halo"),
+                    default="conv_v2")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
+    # the bounds from this checkout's chip_smoke.py (another root's may not
+    # take an operand type)
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_bounds", os.path.join(os.path.dirname(os.path.dirname(
+            here)), "chip_smoke.py"))
+    bounds = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bounds)
     sys.path.insert(0, root)
     import torch
     import torch.nn.functional as F
@@ -80,9 +100,18 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
+    if args.kernel == "conv_v2":
+        mod, dtype, dname = v2, torch.bfloat16, "bfloat16"
+        plain = v2.conv_v2_plain
+    else:
+        mod, dtype, dname = conv, torch.float32, "float32"
+        plain = lambda x, wt: conv.conv3x3_halo_plain(x, wt, dtype)  # noqa: E731
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    name = f"{args.kernel}_kernel"
     t0 = time.perf_counter()
-    v2.build()
-    print(json.dumps({"root": root, "source": v2.SOURCE, "card": card,
+    mod.build()
+    print(json.dumps({"root": root, "source": mod.SOURCE, "card": card,
                       "torch": torch.__version__,
                       "build_s": time.perf_counter() - t0}), flush=True)
     cfg = config.flagship_config(dtype="bfloat16")
@@ -98,31 +127,33 @@ def main() -> int:
         x = torch.randn(b, cin, h, w, device="cuda", generator=gen)
         wt = torch.randn(cout, cin, 3, 3, device="cuda", generator=gen) \
             / (3 * cin ** 0.5)
-        xl = x.to(torch.bfloat16).contiguous(memory_format=cl)
-        w9 = conv.tap_major(wt, torch.bfloat16)
-        wl = wt.to(torch.bfloat16).contiguous(memory_format=cl)
+        xl = x.to(dtype).contiguous(memory_format=cl)
+        w9 = conv.tap_major(wt, dtype)
+        wl = wt.to(dtype).contiguous(memory_format=cl)
         with torch.no_grad():
-            got = v2.launch_kernel(xl, w9)
-            want = v2.conv_v2_plain(x, wt)
+            got = mod.launch_kernel(xl, w9)
+            want = plain(x, wt)
             torch.cuda.synchronize()
             err = ((got - want).abs().max() / want.abs().max()).item()
             del got, want
-            run = lambda: v2.launch_kernel(xl, w9)  # noqa: E731
-            row = {"path": path, "x": [b, cin, h, w], "cout": cout,
-                   "launches_per_step": n, "max_rel_err": err,
+            run = lambda: mod.launch_kernel(xl, w9)  # noqa: E731
+            row = {"kernel": args.kernel, "path": path, "x": [b, cin, h, w],
+                   "cout": cout, "launches_per_step": n, "max_rel_err": err,
                    "ms": cs.time_ms(run, torch),
-                   "device_us": device_us(torch, run),
+                   "device_us": device_us(torch, run, name),
                    "host_us": host_us(torch, run),
                    "library_ms": cs.time_ms(
                        lambda: F.conv2d(xl, wl, padding=1), torch),
-                   "bound_ms": cs.conv_bound(b * h * w, cin, cout)[0]}
+                   "bound_ms": bounds.conv_bound(b * h * w, cin, cout,
+                                                 dname)[0]}
         print(json.dumps(row), flush=True)
         for k in ("ms", "library_ms", "bound_ms"):
             sums[f"{path}:{k}"] = sums.get(f"{path}:{k}", 0.0) + n * row[k]
         sums[f"{path}:device_ms"] = sums.get(f"{path}:device_ms", 0.0) \
             + n * row["device_us"] / 1e3
         del x, wt, xl, w9, wl
-    print(json.dumps({"root": root, "card": card, "per_step": sums}),
+    print(json.dumps({"root": root, "kernel": args.kernel, "card": card,
+                      "per_step": sums}),
           flush=True)
     return 0
 

@@ -1,7 +1,7 @@
 """The hand-written kernels against their plain versions, on the card:
 the 3x3 conv Function forward and backward in both operand types (fp32:
-conv3x3_halo; bf16: the tensor-core conv_v2), conv_v2 alone, and the CDF
-9/7 ladder's analysis and synthesis kernels in all four uses. Imports no JAX, so it runs where only PyTorch is installed:
+conv3x3_halo; bf16: the tensor-core conv_v2), each conv kernel alone, and
+the CDF 9/7 ladder's analysis and synthesis kernels in all four uses. Imports no JAX, so it runs where only PyTorch is installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -134,8 +134,8 @@ V2_SHAPES = [
 
 
 def misaligned(t):
-    """``t`` (channels_last) copied into storage that starts 2 bytes past
-    a 16-byte boundary."""
+    """``t`` (channels_last) copied into storage that starts one element
+    (2 bytes in bf16, 4 in fp32) past a 16-byte boundary."""
     b, c, h, w = t.shape
     buf = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
     out = buf[1:1 + t.numel()].view(b, h, w, c).permute(0, 3, 1, 2)
@@ -202,6 +202,82 @@ def test_bf16_function_on_the_card_runs_only_conv_v2(card, monkeypatch):
     with pytest.raises(ValueError, match="channels_last"):
         conv_v2.launch_kernel(x.detach().to(torch.bfloat16),
                               conv.tap_major(wt, torch.bfloat16))
+
+
+# kernel 1 alone (fp32 operands): its copy paths (16-byte where Cin is a
+# multiple of 4, 4-byte otherwise), each of its tiles and their edges,
+# ragged tiles both ways; each case runs forward and dx (Cin and Cout
+# swapped). Grids of fewer than 132 blocks take the small-grid tiles (N
+# tiles of 8 and 32, 4 pixels a thread), so the first cases are sized to
+# get the usual tiles (N tiles 8, 32, 64, 96, 128, 8 pixels a thread).
+K1_SHAPES = [
+    (6, 64, 96, 3, 96),     # narrow in (4-byte copies): N tile 96
+    (5, 64, 100, 192, 96),  # a Berk AE layer, ragged columns; its dx
+                            # 96 -> 192 in two N tiles of 96
+    (4, 70, 64, 243, 243),  # plc: two N tiles of 128, ragged rows, Cin 243
+                            # (4-byte copies, a last chunk of 3)
+    (6, 64, 96, 64, 95),    # the N tile's edges: 95 in one tile of 96,
+    (6, 64, 96, 64, 97),    # 97 in one of 128,
+    (3, 64, 96, 64, 129),   # 129 in two of 96
+    (6, 64, 96, 32, 64),    # N tile 64; its dx 64 -> 32 in one of 32
+    (9, 64, 128, 1, 32),    # the LL AE's first layer; its dx 32 -> 1 in
+                            # an N tile of 8
+    (9, 64, 128, 96, 3),    # Cout 3: N tile 8
+    (2, 13, 40, 3, 96),     # small grids from here on: ragged rows
+    (1, 17, 35, 32, 70),    # ragged rows and columns
+    (2, 9, 7, 243, 3),      # Cin 243, Cout 3, an image below one tile
+    (1, 20, 33, 96, 192),
+    (1, 16, 64, 192, 96),
+    (2, 12, 20, 1, 32),
+    (1, 11, 18, 32, 1),
+    (1, 10, 40, 3, 243),
+    (1, 9, 20, 243, 243),
+    (1, 1, 40, 96, 192),    # H = 1: every tap row but one is padding
+    (2, 7, 2, 32, 9),       # W = 2
+    (3, 10, 24, 96, 243),   # B = 3, Cout 243; its dx 243 -> 96
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,cin,cout", K1_SHAPES)
+def test_conv3x3_halo_matches_plain_forward_and_dx(card, b, h, w, cin, cout):
+    """Direct launches of kernel 1 in fp32: the forward, and dx (the same
+    kernel on the flipped, swapped weight), against the plain version; the
+    same forward again gives bit-identical output, and so does an x whose
+    storage is not 16-byte aligned (the 4-byte copy path)."""
+    rng = np.random.RandomState(cin * cout + h + 7)
+    x = torch.from_numpy(rng.randn(b, cin, h, w).astype(np.float32)).to(card)
+    wt = torch.from_numpy((rng.randn(cout, cin, 3, 3) / np.sqrt(9 * cin))
+                          .astype(np.float32)).to(card)
+    dy = torch.from_numpy(rng.randn(b, cout, h, w).astype(np.float32)).to(card)
+    cl = torch.channels_last
+    f32 = torch.float32
+    xl = x.contiguous(memory_format=cl)
+    w9 = conv.tap_major(wt, f32)
+    wdx = conv.flip_swap(wt)
+    conv.launches = 0
+    got = conv.launch_kernel(xl, w9)
+    got_dx = conv.launch_kernel(dy.contiguous(memory_format=cl),
+                                conv.tap_major(wdx, f32))
+    torch.cuda.synchronize()
+    assert conv.launches == 2
+    for g, want in ((got, conv.conv3x3_halo_plain(x, wt, f32)),
+                    (got_dx, conv.conv3x3_halo_plain(dy, wdx, f32))):
+        assert g.dtype == f32 and g.shape == want.shape
+        assert g.is_contiguous(memory_format=cl)
+        err = (g - want).abs().max().item() / want.abs().max().item()
+        assert err < TOL
+    assert torch.equal(conv.launch_kernel(xl, w9), got)
+    assert torch.equal(conv.launch_kernel(misaligned(xl), w9), got)
+
+
+@pytest.mark.cuda
+def test_conv3x3_halo_refuses_bf16_operands_on_the_card(card):
+    x = torch.randn(1, 8, 6, 6, device=card).contiguous(
+        memory_format=torch.channels_last)
+    w9 = conv.tap_major(torch.randn(4, 8, 3, 3, device=card), torch.bfloat16)
+    with pytest.raises(ValueError, match="conv_v2"):
+        conv.launch_kernel(x.to(torch.bfloat16), w9)
 
 
 # the ladder: max |kernel - plain| / max |plain|; the same fp32 expressions,
