@@ -83,25 +83,34 @@ Then the CDF 9/7 + factorized codec (``configs/cdf97_factorized.json`` at
 full width: joint RGB, 4 levels, pointwise AEs, factorized bottlenecks,
 fp32, random weights from the port's seeded init):
 
-14. lift97_kernel  the ladder kernels in all four uses (analysis: the
-           forward F and the adjoint of the inverse; synthesis: the inverse
-           I and the adjoint of the forward) against their plain versions
-           along H and W, at every distinct shape of the CDF97 eval path
+14. lift97_kernel  the ladder kernels along one axis in all four uses
+           (analysis: the forward F and the adjoint of the inverse;
+           synthesis: the inverse I and the adjoint of the forward) against
+           their plain versions along H and W, at every distinct shape of
+           the three passes that make up a level of the CDF97 eval path
            (B=8 512x768) and train path (B=4 256x256) and at
            ``scripts/bench_pallas.py``'s shapes; the adjoint identities on
            the card; times, the plain versions', the bound, and as the
            yardstick the same transform as one strided cuDNN conv (or
            transposed conv) with the 9/7 filters on a circularly padded
            input, never used by the port;
+    lift97_level  the same kernels over a whole 2-D level, one launch each
+           way, as the path runs them, at every level of the eval and train
+           paths in all four uses: the error against the plain level, the
+           adjoint identities, ms by events, device ms (torch.profiler) and
+           host us a call, the same level as three one-axis launches and
+           the pack's copy (the form the port ran before), the plain
+           level's ms, the bound (8 bytes a sample) and the cuDNN yardstick
+           (the strided convs along H, then W);
 15. cdf97_parity  the eval step card vs CPU on one 256x256 image, then one
            train step card vs CPU with the training noise pinned to zero;
 16. cdf97_main  the eval step at B=8 512x768 (ms, MP/s, bpp, PSNR, the
-           ladder's launches against 24 a step), then one step profiled;
+           ladder's launches against 8 a step), then one step profiled;
 17. cdf97_train  the train step at the config's batch, 4 x 256x256, Adam at
-           lr 1e-4: 2 warm-up and 10 timed steps (launches against 36 a
+           lr 1e-4: 2 warm-up and 10 timed steps (launches against 12 a
            step), then one step profiled;
 18. cdf97_bitstream  the real bitstream of four 256x256 images: lossless,
-           the real bpp within 3 % of the eval step's likelihood bpp, 24
+           the real bpp within 3 % of the eval step's likelihood bpp, 8
            ladder launches an image;
 19. cdf97_agent  the CLI on the config cut to 2 steps an epoch and 2
            epochs, then ``--resume-training``, then ``mode: test``.
@@ -258,17 +267,25 @@ def coding_conv_launches(cfg):
 
 
 def ladder_launches(cfg, train: bool):
-    """(analysis, synthesis) kernel launches of one CDF97 step: three
-    passes a level each way; a train step's backward adds the adjoint of the
-    inverse (the analysis kernel). The image needs no gradient, so the
-    adjoint of the forward never runs on the path."""
-    per = 3 * cfg.dwtlevels
+    """(analysis, synthesis) kernel launches of one CDF97 step: one level
+    kernel launch a level each way; a train step's backward adds the
+    adjoint of the inverse (the analysis kernel). The image needs no
+    gradient, so the adjoint of the forward never runs on the path."""
+    per = cfg.dwtlevels
     return (2 * per if train else per), per
 
 
+def level_shapes(levels, b, h, w):
+    """The NCHW input of each 2-D level of a CDF97 step on B x 3 x H x W
+    images, finest first; each level launches once each way a step."""
+    return [(b, 3, h >> lvl, w >> lvl) for lvl in range(levels)]
+
+
 def ladder_shapes(levels, b, h, w):
-    """Distinct (NCHW input shape of an analysis pass, dim) of a CDF97 step
-    on B x 3 x H x W images, each with its passes per step (each way)."""
+    """Distinct (NCHW input shape of a 1-D analysis pass, dim) of the three
+    passes that make up each 2-D level of a CDF97 step on B x 3 x H x W
+    images (the parent's form of the level), each with its passes a level
+    set."""
     out = {}
     for lvl in range(levels):
         hh, ww = h >> lvl, w >> lvl
@@ -346,6 +363,61 @@ def time_ms(fn, torch, min_ms=100.0, max_reps=50):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_us(torch, fn, kernel=None, reps=10, tries=5):
+    """Mean device microseconds of one call of ``fn`` and where they come
+    from. From torch.profiler: the kernels whose name holds ``kernel``, or
+    every kernel. A trace that holds no such kernel (the profiler drops one
+    now and then) is taken again, up to ``tries`` times; then the time
+    comes from a CUDA graph of ``reps`` calls, replayed, which counts the
+    gaps between its kernels too (an upper bound)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA
+                 and (kernel is None or kernel in e.key)) / reps
+        if us > 0:
+            return us, "profiler"
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) * 1e3 / (5 * reps), "graph"
+
+
+def host_us(torch, fn, reps=200):
+    """Host microseconds a call of ``fn`` (the card keeps up at the shapes
+    this is asked for)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e6
 
 
 def phase_kernel(torch, F, conv, cfg):
@@ -1277,11 +1349,11 @@ def fnorm(ts) -> float:
 
 
 def phase_lift97_kernel(torch, F, lift, cfg):
-    """The ladder kernels in their four uses against the plain versions at
-    every distinct shape of the CDF97 eval and train paths and of
-    ``bench_pallas.py``, along the dim each pass lifts (both dims for the
-    bench shapes); the adjoint identities; times. Returns one row per shape
-    and use."""
+    """The ladder kernels along one axis in their four uses against the
+    plain versions at every distinct shape of the passes that would make up
+    the levels of the CDF97 eval and train paths and at ``bench_pallas.py``'s
+    shapes, along the dim each pass lifts (both dims for the bench shapes);
+    the adjoint identities; times. Returns one row per shape and use."""
     eval_keys = ladder_shapes(cfg.dwtlevels, B, H, W)
     train_keys = ladder_shapes(cfg.dwtlevels, CDF97_TRAIN_B, TRAIN_P, TRAIN_P)
     keys = list(dict.fromkeys(
@@ -1345,10 +1417,10 @@ def phase_lift97_kernel(torch, F, lift, cfg):
                 row = {"phase": "lift97_kernel", "use": use,
                        "kernel": "lift97" if analysis else "ilift97",
                        "x": list(shape), "dim": dim,
-                       "launches_eval_step": eval_keys.get((shape, dim), 0)
-                       if use in ("F", "I") else 0,
-                       "launches_train_step": train_keys.get((shape, dim), 0)
-                       if use != "F_T" else 0,
+                       "passes_a_level_set_eval": eval_keys.get(
+                           (shape, dim), 0) if use in ("F", "I") else 0,
+                       "passes_a_level_set_train": train_keys.get(
+                           (shape, dim), 0) if use != "F_T" else 0,
                        "max_abs_err": abs_err, "max_rel_err": rel,
                        "ms": ms, "plain_ms": plain_ms,
                        "library_ms": lib_ms["analysis" if analysis
@@ -1372,6 +1444,176 @@ def phase_lift97_kernel(torch, F, lift, cfg):
                 raise AssertionError(f"the conv yardstick is off by {lib_err}")
             del got, want, fx, fty, ix, itx
         del x, lo, hi
+    torch.cuda.empty_cache()
+    return rows
+
+
+def library_level_analysis(F, x, wa):
+    """The level as the conv yardstick: the strided conv along H, then along
+    W of both row bands -> (N*C, 2 [H parity], h/2, 2 [W parity], w/2)."""
+    nc, h, w = x.shape[0] * x.shape[1], x.shape[2], x.shape[3]
+    rows = library_analysis(F, x, 2, wa)             # (N*C, 2, h/2, w)
+    cols = library_analysis(F, rows.reshape(nc * 2, 1, h // 2, w), 3, wa)
+    return cols.reshape(nc, 2, h // 2, 2, w // 2)
+
+
+def library_level_synthesis(torch, F, ll, pack, ws, r0):
+    """The synthesis level as the yardstick: the strided transposed conv
+    along W of each row band, then along H."""
+    b, c, oh, ow = ll.shape
+    lh, hl, hh = (pack.reshape(b, c, 3, oh, ow)[:, :, k] for k in range(3))
+    low = library_synthesis(torch, F, ll, hl, 3, ws, r0).reshape(
+        b, c, oh, 2 * ow)
+    high = library_synthesis(torch, F, lh, hh, 3, ws, r0).reshape(
+        b, c, oh, 2 * ow)
+    return library_synthesis(torch, F, low, high, 2, ws, r0).reshape(
+        b, c, 2 * oh, 2 * ow)
+
+
+def three_pass_analysis(lift, dwt, x, ladder):
+    """The level as the port ran it before the level kernel: three launches
+    along one axis, then the pack's copy."""
+    lo, hi = lift.launch_analysis(x, 2, ladder)
+    ll, hl = lift.launch_analysis(lo, 3, ladder)
+    lh, hh = lift.launch_analysis(hi, 3, ladder)
+    return ll, dwt.pack_details(lh, hl, hh)
+
+
+def three_pass_synthesis(lift, dwt, ll, pack, ladder):
+    lh, hl, hh = (t.contiguous() for t in dwt.unpack_details(pack))
+    low = lift.launch_synthesis(ll, hl, 3, ladder)
+    high = lift.launch_synthesis(lh, hh, 3, ladder)
+    return lift.launch_synthesis(low, high, 2, ladder)
+
+
+def phase_lift97_level(torch, F, lift, dwt, cfg):
+    """The level kernels (one launch a 2-D level each way) in their four
+    uses at every level of the CDF97 eval (B=8 512x768) and train (B=4
+    256x256) paths against the plain level, the adjoint identities, and
+    times: events, device, host, the three-pass form, plain, yardstick.
+    Returns one row per level shape and use."""
+    wa, ws, r0 = ladder_filters(torch, lift)
+    wa, ws = wa.to(DEV), ws.to(DEV)
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    t = lambda fn: time_ms(fn, torch, min_ms=20.0)  # noqa: E731
+    shapes = [("eval", s) for s in level_shapes(cfg.dwtlevels, B, H, W)] \
+        + [("train", s) for s in level_shapes(cfg.dwtlevels, CDF97_TRAIN_B,
+                                              TRAIN_P, TRAIN_P)]
+    on_path = {"eval": ("F", "I"), "train": ("F", "I_T", "I")}
+    rows = []
+    for path, shape in shapes:
+        b, c, h, w = shape
+        x = torch.randn(shape, device=DEV, generator=gen)
+        ll = torch.randn((b, c, h // 2, w // 2), device=DEV, generator=gen)
+        pack = torch.randn((b, 3 * c, h // 2, w // 2), device=DEV,
+                           generator=gen)
+        n = x.numel()
+        # each fp32 sample read once and written once; 7 flops a sample on
+        # each axis. The one-axis bound counted the row bands' round trip:
+        # 8 bytes a sample of each of the three passes' inputs
+        t_bytes = 2 * n * 4 / PEAK_BYTES * 1e3
+        t_ops = 14 * n / PEAK_FLOPS["float32"] * 1e3
+        with torch.no_grad():
+            got = {"F": lift.launch_level_analysis(x, lift.FORWARD),
+                   "I_T": lift.launch_level_analysis(x, lift.INVERSE_T),
+                   "I": (lift.launch_level_synthesis(ll, pack, lift.INVERSE),),
+                   "F_T": (lift.launch_level_synthesis(ll, pack,
+                                                       lift.FORWARD_T),)}
+            torch.cuda.synchronize()
+            fx, (fty,), (ix,), itx = (got[k] for k in ("F", "F_T", "I", "I_T"))
+            adjoint = {
+                "F": abs(fdot(fx[0], ll) + fdot(fx[1], pack) - fdot(x, fty))
+                / (fnorm(fx) * fnorm((ll, pack))),
+                "I": abs(fdot(ix, x) - fdot(ll, itx[0]) - fdot(pack, itx[1]))
+                / (fnorm((ix,)) * fnorm((x,)))}
+            want_ll, want_pack = dwt.level_analysis_plain(x, lift.FORWARD)
+            lib_a = library_level_analysis(F, x, wa)
+            lib_s = library_level_synthesis(torch, F, ll, pack, ws, r0)
+            lh, hl, hh = dwt.unpack_details(want_pack)
+            lib_err = max(
+                rel_err(lib_a[:, 0, :, 0].reshape(ll.shape), want_ll),
+                rel_err(lib_a[:, 0, :, 1].reshape(ll.shape), hl),
+                rel_err(lib_a[:, 1, :, 0].reshape(ll.shape), lh),
+                rel_err(lib_a[:, 1, :, 1].reshape(ll.shape), hh),
+                rel_err(lib_s, dwt.level_synthesis_plain(ll, pack)))
+            del lib_a, lib_s, lh, hl, hh, want_ll, want_pack
+            lib_ms = {
+                "analysis": t(lambda: library_level_analysis(F, x, wa)),
+                "synthesis": t(lambda: library_level_synthesis(
+                    torch, F, ll, pack, ws, r0))}
+            for use, ladder in (("F", lift.FORWARD), ("I_T", lift.INVERSE_T),
+                                ("I", lift.INVERSE),
+                                ("F_T", lift.FORWARD_T)):
+                analysis = use in ("F", "I_T")
+                if analysis:
+                    want = dwt.level_analysis_plain(x, ladder)
+                    run = lambda: lift.launch_level_analysis(  # noqa: E731
+                        x, ladder)
+                    three = lambda: three_pass_analysis(  # noqa: E731
+                        lift, dwt, x, ladder)
+                    plain = lambda: dwt.level_analysis_plain(  # noqa: E731
+                        x, ladder)
+                else:
+                    want = (dwt.level_synthesis_plain(ll, pack, ladder),)
+                    run = lambda: lift.launch_level_synthesis(  # noqa: E731
+                        ll, pack, ladder)
+                    three = lambda: three_pass_synthesis(  # noqa: E731
+                        lift, dwt, ll, pack, ladder)
+                    plain = lambda: dwt.level_synthesis_plain(  # noqa: E731
+                        ll, pack, ladder)
+                abs_err = max((g - w_).abs().max().item()
+                              for g, w_ in zip(got[use], want))
+                rel = max(rel_err(g, w_) for g, w_ in zip(got[use], want))
+                three_out = three()
+                three_out = three_out if analysis else (three_out,)
+                three_err = max(rel_err(g, w_)
+                                for g, w_ in zip(three_out, want))
+                del want, three_out
+                dev_us, dev_src = device_us(torch, run, "level_kernel")
+                three_us, three_src = device_us(torch, three)
+                ms = t(run)
+                row = {"phase": "lift97_level", "use": use,
+                       "kernel": "lift97" if analysis else "ilift97",
+                       "path": path, "x": list(shape),
+                       "plan": lift.launch_plan(
+                           not analysis, "hw", b * c, h, w)._asdict(),
+                       "launches_eval_step": int(path == "eval"
+                                                 and use in on_path["eval"]),
+                       "launches_train_step": int(
+                           path == "train" and use in on_path["train"]),
+                       "max_abs_err": abs_err, "max_rel_err": rel,
+                       "three_pass_rel_err": three_err,
+                       "ms": ms, "device_ms": dev_us / 1e3,
+                       "device_source": dev_src,
+                       "host_us": host_us(torch, run),
+                       "three_pass_ms": t(three),
+                       "three_pass_device_ms": three_us / 1e3,
+                       "three_pass_device_source": three_src,
+                       "plain_ms": t(plain),
+                       "library_ms": lib_ms["analysis" if analysis
+                                            else "synthesis"],
+                       "library_rel_err": lib_err,
+                       "bound_ms": max(t_bytes, t_ops),
+                       "bound_by": "bytes" if t_bytes >= t_ops
+                       else "operations",
+                       "bound_1d_ms": 2 * t_bytes,
+                       "gb_per_s": 2 * n * 4 / dev_us / 1e3,
+                       "gb_per_s_events": 2 * n * 4 / ms / 1e6,
+                       "adjoint_err": adjoint.get(use)}
+                emit(row)
+                rows.append(row)
+                if not (rel <= LADDER_TOL and three_err <= LADDER_TOL):
+                    raise AssertionError(
+                        f"lift97 level {use} {shape}: error {rel:.3e} "
+                        f"(three passes {three_err:.3e}) > {LADDER_TOL}")
+            if not max(adjoint.values()) <= ADJOINT_TOL:
+                raise AssertionError(f"lift97 level {shape}: adjoint "
+                                     f"identity off by {adjoint}")
+            if not lib_err <= LIBRARY_TOL:
+                raise AssertionError(f"the level's conv yardstick is off by "
+                                     f"{lib_err}")
+            del got, fx, fty, ix, itx
+        del x, ll, pack
     torch.cuda.empty_cache()
     return rows
 
@@ -1583,7 +1825,7 @@ def phase_cdf97_train(torch, np, pkg, counts):
 def phase_cdf97_bitstream(torch, np, pkg, counts):
     """The CDF97 codec's real bitstream (seeded random weights) on four
     256x256 images: lossless, the real rate near the eval step's
-    likelihood rate, 24 ladder launches an image."""
+    likelihood rate, 8 ladder launches an image."""
     cfg = cdf97_config(pkg)
     model = cdf97_model(torch, pkg, cfg)
     step = pkg.state.make_eval_step(cfg, model, DEV)
@@ -1642,15 +1884,21 @@ def reckon_cdf97_agent(cfg, n_valid):
                        ilift=epochs * (steps * ts + n_valid * es))
 
 
-def ladder_entry(name, lift, rows, main_res, train_res):
+def ladder_entry(name, lift, rows, level_rows, main_res, train_res):
     """The ``kernels`` line's entry of one ladder kernel: its launches on
-    the CDF97 eval and train paths, and per eval step (its shapes times its
-    launches there) its time, the plain version's, the bound and the conv
-    yardstick's."""
-    mine = [r for r in rows if r["kernel"] == name]
+    the CDF97 eval and train paths, and per eval step (each level shape's
+    numbers times its launches there) its time by events and on the device,
+    the host's time a call, the plain level's, the bound, the old one-axis
+    bound, the three-pass form's and the conv yardstick's; the same per
+    train step."""
+    mine = [r for r in level_rows if r["kernel"] == name]
 
     def per(key, path="eval"):
         return sum(r[key] * r[f"launches_{path}_step"] for r in mine)
+
+    def mean_host(path):
+        on = [r["host_us"] for r in mine if r[f"launches_{path}_step"]]
+        return sum(on) / len(on)
 
     ev, tr = main_res["launches"][name], train_res["launches"][name]
     return {"name": name, "route": "cuda",
@@ -1659,19 +1907,24 @@ def ladder_entry(name, lift, rows, main_res, train_res):
                         + ("85" if name == "lift97" else "106"),
             "launches": ev + tr, "launches_eval_path": ev,
             "launches_train_path": tr,
-            "max_abs_err": max(r["max_abs_err"] for r in mine),
-            "ms": per("ms"), "plain_ms": per("plain_ms"),
-            "bound_ms": per("bound_ms"), "bound_by": "bytes",
+            "max_abs_err": max(r["max_abs_err"] for r in mine + [
+                r for r in rows if r["kernel"] == name]),
+            "ms": per("ms"), "device_ms": per("device_ms"),
+            "host_us_per_call": mean_host("eval"),
+            "plain_ms": per("plain_ms"), "bound_ms": per("bound_ms"),
+            "bound_by": "bytes", "bound_1d_ms": per("bound_1d_ms"),
             "library_ms": per("library_ms"),
+            "three_pass_ms": per("three_pass_ms"),
+            "three_pass_device_ms": per("three_pass_device_ms"),
             "train_step_ms": per("ms", "train"),
+            "train_step_device_ms": per("device_ms", "train"),
             "train_step_plain_ms": per("plain_ms", "train"),
             "train_step_bound_ms": per("bound_ms", "train"),
             "train_step_library_ms": per("library_ms", "train")}
 
 
-
 def kernel_entries(conv, v2, lift97, rows, bwd_rows, v2_rows, lift_rows,
-                   res):
+                   level_rows, res):
     """The ``kernels`` line: every hand-written kernel with its launches on
     the paths (each counted with the counts set to 0 just before the run)
     and its time, the plain version's, the bound and the library call's
@@ -1697,8 +1950,9 @@ def kernel_entries(conv, v2, lift97, rows, bwd_rows, v2_rows, lift_rows,
             "train": res["train"]["launches"]["conv_v2"],
             "bitstream_bf16": res["bitstream_bf16_launches"]}
     tpu = "imagecompressionlearnedliftingandlearnedtreebasedmodels_tpu/"
-    ladders = [ladder_entry(k, lift97, lift_rows, res["cdf97_main"],
-                            res["cdf97_train"]) for k in ("lift97", "ilift97")]
+    ladders = [ladder_entry(k, lift97, lift_rows, level_rows,
+                            res["cdf97_main"], res["cdf97_train"])
+               for k in ("lift97", "ilift97")]
     return [{
         # kernel 1 carries the fp32 convs: its numbers per fp32 eval step
         "name": "conv3x3_halo", "route": "cuda",
@@ -1762,7 +2016,7 @@ def main() -> int:
     from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.models import (
         codec)
     from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.ops import (
-        color, conv3x3_halo as conv, conv_v2 as v2, lift97)
+        color, conv3x3_halo as conv, conv_v2 as v2, dwt97, lift97)
     from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.tools import (
         weights)
     from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.train import (
@@ -1832,6 +2086,7 @@ def main() -> int:
     cdf97_cfg = cdf97_config(pkg)
     with tf32_off(torch):
         lift_rows = phase_lift97_kernel(torch, F, lift97, cdf97_cfg)
+        level_rows = phase_lift97_level(torch, F, lift97, dwt97, cdf97_cfg)
     with tf32_off(torch, deterministic=True):
         phase_cdf97_parity(torch, numpy, pkg, counts)
     cdf_main, step, batch = phase_cdf97_main(torch, numpy, pkg, counts)
@@ -1897,14 +2152,16 @@ def main() -> int:
                                + per_step("dx_ms", v2_train))
           / train_res["ms_per_step"]})
     entries = kernel_entries(conv, v2, lift97, rows, bwd_rows, v2_rows,
-                             lift_rows, res)
+                             lift_rows, level_rows, res)
     ladders = [e for e in entries if e["name"] in ("lift97", "ilift97")]
     emit({"phase": "ladder_per_step", "dtype": "float32",
           "eval_step_ms": cdf_main["ms_per_step"],
           "train_step_ms": cdf_train["ms_per_step"],
           **{f"{e['name']}_{k}": e[k] for e in ladders
-             for k in ("ms", "plain_ms", "bound_ms", "library_ms",
-                       "train_step_ms")},
+             for k in ("ms", "device_ms", "host_us_per_call", "plain_ms",
+                       "bound_ms", "bound_1d_ms", "library_ms",
+                       "three_pass_ms", "three_pass_device_ms",
+                       "train_step_ms", "train_step_device_ms")},
           "share_of_eval_step": sum(e["ms"] for e in ladders)
           / cdf_main["ms_per_step"],
           "share_of_train_step": sum(e["train_step_ms"] for e in ladders)

@@ -5,13 +5,20 @@ Counterpart of the JAX package's ``ops/dwt97.py``. Each 2-D level lifts the
 rows (H, dim 2) first, then the columns (W, dim 3) of each row band:
 (LL, HL) from the row-low band, (LH, HH) from the row-high one. Ends are
 periodic, so every level halves both sides exactly and the inverse is
-exact. The 1-D passes are :func:`..lift97.lift97_1d`/``ilift97_1d``: the
-hand-written kernels on a CUDA tensor (three launches a level each way),
-the plain ladder on a CPU tensor.
-
-Per level the three detail subbands are packed into ``3*C`` channels with
-per-color-channel (LH, HL, HH) order, as the JAX package's
+exact. Per level the three detail subbands are packed into ``3*C``
+channels with per-color-channel (LH, HL, HH) order, as the JAX package's
 ``pack_details`` does along its last axis.
+
+:func:`dwt97_level` and :func:`idwt97_level` are ``torch.autograd.Function``s
+over a whole level, (B,C,H,W) <-> (LL, detail pack). On a CUDA tensor each
+is one launch of ``csrc/lift97.cu``'s level kernel
+(:func:`..lift97.launch_level_analysis` / ``launch_level_synthesis``,
+the pack written and read in place), and so is each backward: the adjoint
+of the analysis level (H then W with ``FORWARD``) is the synthesis level
+with ``FORWARD_T`` (W then H), the adjoint of the synthesis level the
+analysis level with ``INVERSE_T``. On a CPU tensor they run
+:func:`level_analysis_plain` / :func:`level_synthesis_plain`, the plain
+ladder of :mod:`.lift97` along each axis.
 """
 
 from __future__ import annotations
@@ -20,22 +27,9 @@ from typing import List, Tuple
 
 import torch
 
-from .lift97 import ilift97_1d, lift97_1d
-
-
-def dwt97_level(x: torch.Tensor):
-    """One 2-D level, (B,C,H,W) -> (LL, LH, HL, HH), each (B,C,H/2,W/2)."""
-    low, high = lift97_1d(x, 2)
-    ll, hl = lift97_1d(low, 3)
-    lh, hh = lift97_1d(high, 3)
-    return ll, lh, hl, hh
-
-
-def idwt97_level(ll, lh, hl, hh) -> torch.Tensor:
-    """Exact inverse of :func:`dwt97_level`."""
-    low = ilift97_1d(ll, hl, 3)
-    high = ilift97_1d(lh, hh, 3)
-    return ilift97_1d(low, high, 2)
+from . import lift97
+from .lift97 import FORWARD, FORWARD_T, INVERSE, INVERSE_T, Ladder
+from .lift97 import ilift97_1d, lift97_1d  # noqa: F401  (the 1-D passes)
 
 
 def pack_details(lh: torch.Tensor, hl: torch.Tensor,
@@ -53,6 +47,92 @@ def unpack_details(xo: torch.Tensor):
     return stacked[:, :, 0], stacked[:, :, 1], stacked[:, :, 2]
 
 
+def level_analysis_plain(x: torch.Tensor, ladder: Ladder = FORWARD):
+    """The level kernel's analysis in plain PyTorch: H, then W of each row
+    band -> (LL, detail pack)."""
+    low, high = lift97.analysis_plain(x, 2, ladder)
+    ll, hl = lift97.analysis_plain(low, 3, ladder)
+    lh, hh = lift97.analysis_plain(high, 3, ladder)
+    return ll, pack_details(lh, hl, hh)
+
+
+def level_synthesis_plain(ll: torch.Tensor, pack: torch.Tensor,
+                          ladder: Ladder = INVERSE) -> torch.Tensor:
+    """The level kernel's synthesis in plain PyTorch: W of each row band,
+    then H."""
+    lh, hl, hh = unpack_details(pack)
+    low = lift97.synthesis_plain(ll, hl, 3, ladder)
+    high = lift97.synthesis_plain(lh, hh, 3, ladder)
+    return lift97.synthesis_plain(low, high, 2, ladder)
+
+
+def level_analysis(x: torch.Tensor, ladder: Ladder):
+    if x.is_cuda:
+        return lift97.launch_level_analysis(x.contiguous(), ladder)
+    return level_analysis_plain(x, ladder)
+
+
+def level_synthesis(ll: torch.Tensor, pack: torch.Tensor,
+                    ladder: Ladder) -> torch.Tensor:
+    if ll.is_cuda:
+        return lift97.launch_level_synthesis(ll.contiguous(),
+                                             pack.contiguous(), ladder)
+    return level_synthesis_plain(ll, pack, ladder)
+
+
+class _Level(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ll, pack = level_analysis(x, FORWARD)
+        ctx.shapes = (ll.shape, pack.shape, x.device)
+        return ll, pack
+
+    @staticmethod
+    def backward(ctx, g_ll, g_pack):
+        ll_shape, pack_shape, dev = ctx.shapes
+        if g_ll is None:
+            g_ll = torch.zeros(ll_shape, device=dev)
+        if g_pack is None:
+            g_pack = torch.zeros(pack_shape, device=dev)
+        return level_synthesis(g_ll, g_pack, FORWARD_T)
+
+
+class _ILevel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, ll, pack):
+        return level_synthesis(ll, pack, INVERSE)
+
+    @staticmethod
+    def backward(ctx, g):
+        return level_analysis(g, INVERSE_T)
+
+
+def _check_level(x: torch.Tensor, what: str) -> None:
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"dwt97: unsupported device {x.device}")
+    if x.dim() != 4:
+        raise ValueError(f"dwt97: {what} {tuple(x.shape)} is not NCHW")
+
+
+def dwt97_level(x: torch.Tensor):
+    """One 2-D level, (B,C,H,W) -> (LL (B,C,H/2,W/2), the detail pack
+    (B,3C,H/2,W/2)); H and W must be even. Differentiable."""
+    _check_level(x, "x")
+    if x.shape[2] % 2 or x.shape[3] % 2:
+        raise ValueError(f"dwt97: a level of {tuple(x.shape)} needs even H "
+                         "and W")
+    return _Level.apply(x)
+
+
+def idwt97_level(ll: torch.Tensor, pack: torch.Tensor) -> torch.Tensor:
+    """Exact inverse of :func:`dwt97_level`. Differentiable."""
+    _check_level(ll, "LL")
+    if pack.shape != (ll.shape[0], 3 * ll.shape[1], *ll.shape[2:]):
+        raise ValueError(f"idwt97: LL {tuple(ll.shape)} and pack "
+                         f"{tuple(pack.shape)} differ")
+    return _ILevel.apply(ll, pack)
+
+
 def dwt97_forward(x: torch.Tensor, levels: int
                   ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """Multi-level 9/7 DWT -> ``(ll, highs)``; ``highs[i]`` is the level-i
@@ -60,13 +140,14 @@ def dwt97_forward(x: torch.Tensor, levels: int
     highs = []
     ll = x
     for _ in range(levels):
-        ll, lh, hl, hh = dwt97_level(ll)
-        highs.append(pack_details(lh, hl, hh))
+        ll, pack = dwt97_level(ll)
+        highs.append(pack)
     return ll, highs
 
 
 def dwt97_inverse(ll: torch.Tensor, highs: List[torch.Tensor]) -> torch.Tensor:
     """Exact inverse of :func:`dwt97_forward`."""
     for xo in reversed(highs):
-        ll = idwt97_level(ll, *unpack_details(xo))
+        ll = idwt97_level(ll, xo)
     return ll
+

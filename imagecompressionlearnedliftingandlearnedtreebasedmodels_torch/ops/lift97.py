@@ -1,5 +1,6 @@
-"""The CDF 9/7 lifting ladder along one axis: the hand-written CUDA kernels,
-the autograd Functions and their plain versions.
+"""The CDF 9/7 lifting ladder: the hand-written CUDA level kernels, the
+autograd Functions along one axis, their plain versions and the kernels'
+launch plan.
 
 Counterpart of the JAX package's Pallas kernels in
 ``scripts/bench_pallas.py``: ``lift97_rows_fused`` (``_ladder_kernel``, the
@@ -26,12 +27,23 @@ four uses are two structures:
 - :data:`INVERSE_T` (analysis), the adjoint of the inverse: U(-a) P(-b)
   U(-g) P(-d), gains (1/NL, 1/NH).
 
-:func:`lift97_1d` and :func:`ilift97_1d` are ``torch.autograd.Function``s on
-both devices; each one's backward is the other structure with the
-transposed ladder. On a CUDA tensor every pass launches the kernel of
-``csrc/lift97.cu`` (built at first use by :mod:`.nvcc`) or raises; it never
-falls back. On a CPU tensor it runs :func:`analysis_plain` /
-:func:`synthesis_plain` (``torch.roll``, the JAX ladder's expressions).
+``csrc/lift97.cu`` holds one kernel a direction (built at first use by
+:mod:`.nvcc`). One launch lifts a whole 2-D level of an NCHW tensor --
+rows first, then the columns of each row band, as ``ops/dwt97.py`` orders
+it; the synthesis the exact reverse -- with the detail pack written and
+read in place (:func:`launch_level_analysis`,
+:func:`launch_level_synthesis`; ``ops/dwt97.py`` wraps them in the
+level Functions), or one axis (:func:`launch_analysis`,
+:func:`launch_synthesis`: a (planes, n, inner) view lifts the middle
+axis, an (outer, n) view the last). :func:`launch_plan` picks the tile
+and the persistent grid. A CUDA tensor launches the kernel or raises: no
+build or launch failure falls back.
+
+:func:`lift97_1d` and :func:`ilift97_1d` are ``torch.autograd.Function``s
+along one axis on both devices; each one's backward is the other
+structure with the transposed ladder. On a CPU tensor they run
+:func:`analysis_plain` / :func:`synthesis_plain` (``torch.roll``, the JAX
+ladder's expressions).
 
 The module-level ``launches_lift`` and ``launches_ilift`` count launches of
 the analysis and synthesis kernels; a run sets them to 0 and reads them
@@ -41,6 +53,7 @@ back to show which path it went through.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import os
 from typing import NamedTuple, Tuple
@@ -71,15 +84,37 @@ SOURCE = os.path.join(nvcc.CSRC, "lift97.cu")
 launches_lift = 0    # analysis-kernel launches (F and the adjoint of I)
 launches_ilift = 0   # synthesis-kernel launches (I and the adjoint of F)
 
+# The kernels' geometry (csrc/lift97.cu keeps the same constants).
+THREADS = 128
+REACH = 2            # pairs a lifted axis stages each side of a tile
+SMS = 132            # SMs of an H100 SXM
+SM_SMEM = 233_472    # shared memory of an SM; each block reserves 1 KB more
+BLOCK_SMEM = 232_448  # dynamic shared memory a block may have on sm_90
+BLOCKS_PER_SM = 4    # the kernels' __launch_bounds__
+AXES = {"h": 1, "w": 2, "hw": 3}
+# lifted axes -> the compiled (rows, columns) sample tiles, largest first;
+# csrc/lift97.cu's LIFT97_TILES lists the same
+TILES = {"hw": ((64, 64), (32, 32), (16, 16)),
+         "h": ((32, 128), (16, 64)),
+         "w": ((128, 64), (64, 16))}
+
+
+class LaunchArgs(ctypes.Structure):
+    """``csrc/lift97.cu``'s ``LaunchArgs``: what a launch needs besides its
+    pointers, built once per direction, geometry and ladder."""
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "synth", "axes", "tile_r", "tile_c", "vec", "grid", "planes", "h",
+        "w")] + [("kinds", ctypes.c_int * 4), ("coefs", ctypes.c_float * 4),
+                 ("g_lo", ctypes.c_float), ("g_hi", ctypes.c_float),
+                 ("base", ctypes.c_int * 4),
+                 ("offset", ctypes.c_longlong * 4),
+                 ("stride", ctypes.c_longlong * 4)]
+
 
 def _declare(lib: ctypes.CDLL) -> None:
-    for name in ("lift97_analysis", "lift97_synthesis"):
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 3 + [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
-            ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float),
-            ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    fn = lib.lift97_level
+    fn.argtypes = [ctypes.POINTER(LaunchArgs)] + [ctypes.c_void_p] * 4
+    fn.restype = ctypes.c_int
 
 
 LIBRARY = nvcc.Library(SOURCE, _declare)
@@ -118,46 +153,186 @@ def synthesis_plain(low: torch.Tensor, high: torch.Tensor, dim: int,
 
 # --- the kernels -----------------------------------------------------------
 
+class Plan(NamedTuple):
+    """One launch's geometry. A block owns ``tile`` = (rows, columns)
+    samples of one (h, w) plane and stages ``stage_rows`` rows of ``pitch``
+    floats (the tile and the ladder's reach) in each of two ring stages;
+    ``tiles`` such tiles are walked by ``grid`` persistent blocks of
+    ``THREADS`` threads. ``vec``: 16-byte copies and float4 stores."""
+    synth: bool
+    axes: str
+    planes: int
+    h: int
+    w: int
+    tile: tuple
+    tiles: int
+    grid: int
+    stage_rows: int
+    pitch: int
+    smem_bytes: int
+    vec: bool
+
+
+def stage_shape(synth: bool, axes: str, tile_r: int, tile_c: int):
+    """(rows, used columns, pitch) of a ring stage. A lifted axis stages
+    ``REACH`` pairs (2 REACH samples) on each side; the synthesis along W
+    holds each band's pairs in a quadrant of tile_c/2 + 4 REACH columns.
+    The pitch is an odd number of float4s."""
+    lh, lw = "h" in axes, "w" in axes
+    rows = tile_r + (4 * REACH if lh else 0)
+    cols = 2 * (tile_c // 2 + 4 * REACH) if synth and lw \
+        else tile_c + (4 * REACH if lw else 0)
+    return rows, cols, cols if (cols // 4) % 2 else cols + 4
+
+
+@functools.lru_cache(maxsize=1024)
+def launch_plan(synth: bool, axes: str, planes: int, h: int, w: int,
+                aligned: bool = True) -> Plan:
+    """The kernel's geometry for ``planes`` planes of h x w samples lifted
+    along ``axes`` ("h", "w" or "hw"); ``aligned``: every operand starts on
+    a 16-byte boundary. The largest tile that gives the grid at least one
+    block an SM, else the smallest."""
+    for tile_r, tile_c in TILES[axes]:
+        tiles = planes * -(-h // tile_r) * -(-w // tile_c)
+        if tiles >= SMS:
+            break
+    rows, _, pitch = stage_shape(synth, axes, tile_r, tile_c)
+    smem = 2 * rows * pitch * 4
+    per_sm = max(1, min(BLOCKS_PER_SM, SM_SMEM // (smem + 1024)))
+    vec = aligned and w % (8 if "w" in axes else 4) == 0
+    return Plan(synth, axes, planes, h, w, (tile_r, tile_c), tiles,
+                min(tiles, SMS * per_sm), rows, pitch, smem, vec)
+
+
+_LIB = None
+
+
+@functools.lru_cache(maxsize=1024)
+def _launch_args(synth: bool, axes: str, planes: int, h: int, w: int,
+                 aligned: bool, ladder: Ladder):
+    """The launch's ``LaunchArgs`` (a pointer to it), built and checked once
+    per direction, geometry, alignment and ladder. Bands (ph, pw) = (0,0),
+    (0,1), (1,0), (1,1): of a level, LL at base 0 and HL, LH, HH in the
+    pack at base 1 (channels 3c+1, 3c, 3c+2); of one axis, low at base 0
+    and high at base 1."""
+    if min(planes, h, w) < 1 or ("h" in axes and h % 2) \
+            or ("w" in axes and w % 2):
+        raise ValueError(f"lift97 kernel: lifted lengths of a {h}x{w} plane "
+                         "must be even and non-zero")
+    if h * w >= 2 ** 31:
+        raise ValueError(f"lift97 kernel: a {h}x{w} plane is out of range")
+    plan = launch_plan(synth, axes, planes, h, w, aligned)
+    if plan.tiles >= 2 ** 31:
+        raise ValueError(f"lift97 kernel: {plan.tiles} tiles are out of "
+                         "range")
+    n = (h // 2 if "h" in axes else h) * (w // 2 if "w" in axes else w)
+    base, offset, stride = {
+        "hw": ((0, 1, 1, 1), (0, n, 0, 2 * n), (n, 3 * n, 3 * n, 3 * n)),
+        "h": ((0, -1, 1, -1), (0,) * 4, (n,) * 4),
+        "w": ((0, 1, -1, -1), (0,) * 4, (n,) * 4)}[axes]
+    return ctypes.pointer(LaunchArgs(
+        int(synth), AXES[axes], *plan.tile, int(plan.vec), plan.grid, planes,
+        h, w, (ctypes.c_int * 4)(*(k for k, _ in ladder.steps)),
+        (ctypes.c_float * 4)(*(c for _, c in ladder.steps)), *ladder.gains,
+        (ctypes.c_int * 4)(*base), (ctypes.c_longlong * 4)(*offset),
+        (ctypes.c_longlong * 4)(*stride)))
+
+
+def _check_operands(tensors, what: str) -> None:
+    index = tensors[0].get_device()
+    for t in tensors:
+        if not t.is_cuda or t.get_device() != index:
+            raise ValueError(f"lift97 kernel: {what} must be on one CUDA "
+                             "device")
+        if t.dtype is not torch.float32 or not t.is_contiguous():
+            raise ValueError(f"lift97 kernel: {what} must be contiguous fp32")
+
+
+def _launch(synth: bool, axes: str, x: torch.Tensor, base0: torch.Tensor,
+            base1: torch.Tensor, planes: int, h: int, w: int, ladder: Ladder,
+            aligned: bool) -> None:
+    """One launch on x (planes, h, w) and the bands' two base tensors."""
+    global _LIB
+    args = _launch_args(synth, axes, planes, h, w, aligned, ladder)
+    lib = _LIB or build()
+    _LIB = lib
+    index = x.get_device()
+    if index == torch.cuda.current_device():
+        err = lib.lift97_level(args, x.data_ptr(), base0.data_ptr(),
+                               base1.data_ptr(),
+                               torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = lib.lift97_level(args, x.data_ptr(), base0.data_ptr(),
+                                   base1.data_ptr(),
+                                   torch._C._cuda_getCurrentRawStream(index))
+    if err != 0:
+        raise RuntimeError(f"lift97 kernel launch failed: cudaError {err}")
+
+
+def _aligned(*ts) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in ts)
+
+
+def launch_level_analysis(x: torch.Tensor, ladder: Ladder = FORWARD):
+    """One 2-D analysis level of contiguous fp32 ``x`` (B, C, H, W) in one
+    launch: H, then W of each row band -> (LL (B, C, H/2, W/2), the detail
+    pack (B, 3C, H/2, W/2), channel 3c + s with s = (LH, HL, HH))."""
+    global launches_lift
+    _check_operands((x,), "x")
+    if x.dim() != 4:
+        raise ValueError(f"lift97 level: x {tuple(x.shape)} is not NCHW")
+    b, c, h, w = x.shape
+    ll = x.new_empty((b, c, h // 2, w // 2))
+    pack = x.new_empty((b, 3 * c, h // 2, w // 2))
+    _launch(False, "hw", x, ll, pack, b * c, h, w, ladder, _aligned(x))
+    launches_lift += 1
+    return ll, pack
+
+
+def launch_level_synthesis(ll: torch.Tensor, pack: torch.Tensor,
+                           ladder: Ladder = INVERSE) -> torch.Tensor:
+    """One 2-D synthesis level in one launch: W of each row band, then H,
+    from contiguous fp32 LL (B, C, h, w) and the detail pack (B, 3C, h, w),
+    read in place -> x (B, C, 2h, 2w)."""
+    global launches_ilift
+    _check_operands((ll, pack), "LL and the pack")
+    if ll.dim() != 4 or pack.shape != (ll.shape[0], 3 * ll.shape[1],
+                                       *ll.shape[2:]):
+        raise ValueError(f"lift97 level: LL {tuple(ll.shape)} and pack "
+                         f"{tuple(pack.shape)} do not match")
+    b, c, oh, ow = ll.shape
+    x = ll.new_empty((b, c, 2 * oh, 2 * ow))
+    _launch(True, "hw", x, ll, pack, b * c, 2 * oh, 2 * ow, ladder,
+            _aligned(ll, pack))
+    launches_ilift += 1
+    return x
+
+
 def _geometry(shape, dim: int):
     """(outer, n, inner) of the lifted axis ``dim`` of a contiguous tensor."""
     return math.prod(shape[:dim]), shape[dim], math.prod(shape[dim + 1:])
 
 
-def _launch(name: str, ins, out, n: int, outer: int, inner: int,
-            ladder: Ladder) -> None:
-    for t in (*ins, *out):
-        if t.device.type != "cuda" or t.device != ins[0].device:
-            raise ValueError("lift97 kernel: tensors must be on one CUDA "
-                             "device")
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError("lift97 kernel: tensors must be contiguous fp32")
-    m = n // 2
-    # the grid: ceil(m / 64) pair tiles, ceil(lines / 8) line tiles at most
-    if n < 2 or n % 2 or -(-m // 64) > 65535 \
-            or -(-(outer * inner) // 8) >= 2 ** 31:
-        raise ValueError(f"lift97 kernel: lifted length {n} with "
-                         f"{outer * inner} lines is out of range")
-    kinds = (ctypes.c_int * 4)(*(k for k, _ in ladder.steps))
-    coefs = (ctypes.c_float * 4)(*(c for _, c in ladder.steps))
-    ptrs = [t.data_ptr() for t in ins] + [t.data_ptr() for t in out]
-    lib = build()
-    with torch.cuda.device(ins[0].device):
-        stream = torch.cuda.current_stream(ins[0].device).cuda_stream
-        err = getattr(lib, name)(*ptrs, outer, n, inner, kinds, coefs,
-                                 *ladder.gains, stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+def _axis(outer: int, n: int, inner: int):
+    """(axes, planes, h, w): an (outer, n, inner) view lifts h of (outer, n,
+    inner) planes; the last axis (inner 1) is w of one (outer, n) plane."""
+    if inner == 1:
+        return "w", 1, outer, n
+    return "h", outer, n, inner
 
 
 def launch_analysis(x: torch.Tensor, dim: int, ladder: Ladder = FORWARD):
-    """The analysis kernel on contiguous fp32 ``x`` along ``dim``."""
+    """The analysis kernel on contiguous fp32 ``x`` along ``dim`` alone."""
     global launches_lift
+    _check_operands((x,), "x")
     dim %= x.dim()
     outer, n, inner = _geometry(x.shape, dim)
     half = x.shape[:dim] + (n // 2,) + x.shape[dim + 1:]
-    low = torch.empty(half, device=x.device, dtype=x.dtype)
-    high = torch.empty_like(low)
-    _launch("lift97_analysis", (x,), (low, high), n, outer, inner, ladder)
+    low = x.new_empty(half)
+    high = x.new_empty(half)
+    axes, planes, h, w = _axis(outer, n, inner)
+    _launch(False, axes, x, low, high, planes, h, w, ladder, _aligned(x))
     launches_lift += 1
     return low, high
 
@@ -165,17 +340,19 @@ def launch_analysis(x: torch.Tensor, dim: int, ladder: Ladder = FORWARD):
 def launch_synthesis(low: torch.Tensor, high: torch.Tensor, dim: int,
                      ladder: Ladder = INVERSE) -> torch.Tensor:
     """The synthesis kernel on contiguous fp32 ``low``/``high`` along
-    ``dim``."""
+    ``dim`` alone."""
     global launches_ilift
+    _check_operands((low, high), "low and high")
     if low.shape != high.shape:
         raise ValueError(f"lift97 kernel: low {tuple(low.shape)} and high "
                          f"{tuple(high.shape)} differ")
     dim %= low.dim()
     outer, m, inner = _geometry(low.shape, dim)
     full = low.shape[:dim] + (2 * m,) + low.shape[dim + 1:]
-    x = torch.empty(full, device=low.device, dtype=low.dtype)
-    _launch("lift97_synthesis", (low, high), (x,), 2 * m, outer, inner,
-            ladder)
+    x = low.new_empty(full)
+    axes, planes, h, w = _axis(outer, 2 * m, inner)
+    _launch(True, axes, x, low, high, planes, h, w, ladder,
+            _aligned(low, high))
     launches_ilift += 1
     return x
 

@@ -1,9 +1,10 @@
-"""Time a 3x3 conv kernel of the port at every shape of the main path, on
-one CUDA card: the bf16 tensor-core kernel (``ops/conv_v2.py``, the
-default) or, with ``--kernel conv3x3_halo``, the fp32 CUDA-core kernel
-(``ops/conv3x3_halo.py``) on fp32 operands.
+"""Time a kernel of the port at every shape of the main path, on one CUDA
+card: the bf16 tensor-core conv (``ops/conv_v2.py``, the default), with
+``--kernel conv3x3_halo`` the fp32 CUDA-core conv (``ops/conv3x3_halo.py``)
+on fp32 operands, or with ``--kernel lift97`` the CDF 9/7 ladder a 2-D level
+at a time (``ops/dwt97.py``, each level of the CDF97 eval and train steps).
 
-    python imagecompressionlearnedliftingandlearnedtreebasedmodels_torch/tools/conv_v2_bench.py [--kernel conv_v2|conv3x3_halo] [--root DIR]
+    python imagecompressionlearnedliftingandlearnedtreebasedmodels_torch/tools/conv_v2_bench.py [--kernel conv_v2|conv3x3_halo|lift97] [--root DIR]
 
 ``--root`` names the checkout whose port package (and ``chip_smoke.py``,
 for the shapes) is imported: by default the one this file lies in. So two
@@ -36,45 +37,89 @@ import sys
 import time
 
 
-def device_us(torch, fn, kernel, reps=10, tries=3):
-    """Mean device microseconds of the kernels whose name holds ``kernel``
-    in one call of ``fn``, from torch.profiler. A trace that holds no such
-    kernel (the profiler drops one now and then) is taken again, up to
-    ``tries`` times."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA and kernel in e.key) / reps
-        if us > 0:
-            break
-    return us
-
-
-def host_us(torch, fn, reps=200):
-    """Host microseconds a call of ``fn`` (the card keeps up at the shapes
-    this is asked for)."""
-    fn()
-    torch.cuda.synchronize()
+def lift97_bench(torch, cs, bounds, card, root) -> int:
+    """The CDF 9/7 ladder, level by level, as the root's package runs it on
+    the path: its ``ops/dwt97.py`` level forward (``level_analysis``, one
+    launch, where it has one; else the three one-axis passes and the pack's
+    copy) and inverse, each at every level of the CDF97 eval and train
+    steps. Device time sums every kernel of the call (the copies too); the
+    sums per path add one call each way a level (a train step's backward
+    adds one more analysis a level)."""
+    from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.ops import (
+        dwt97, lift97)
     t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    t1 = time.perf_counter()
-    torch.cuda.synchronize()
-    return (t1 - t0) / reps * 1e6
+    lift97.build()
+    print(json.dumps({"root": root, "source": lift97.SOURCE, "card": card,
+                      "torch": torch.__version__,
+                      "build_s": time.perf_counter() - t0}), flush=True)
+    if hasattr(dwt97, "level_analysis"):
+        form = "level kernel"
+
+        def analysis(x):
+            return dwt97.level_analysis(x, lift97.FORWARD)
+
+        def synthesis(ll, pack):
+            return dwt97.level_synthesis(ll, pack, lift97.INVERSE)
+    else:
+        form = "three one-axis passes"
+
+        def analysis(x):
+            ll, lh, hl, hh = dwt97.dwt97_level(x)
+            return ll, dwt97.pack_details(lh, hl, hh)
+
+        def synthesis(ll, pack):
+            return dwt97.idwt97_level(ll, *dwt97.unpack_details(pack))
+
+    def plain_level(x):
+        low, high = lift97.analysis_plain(x, 2)
+        ll, hl = lift97.analysis_plain(low, 3)
+        lh, hh = lift97.analysis_plain(high, 3)
+        return ll, dwt97.pack_details(lh, hl, hh)
+
+    levels = 4
+    cases = [("eval", s) for s in bounds.level_shapes(levels, cs.B, cs.H,
+                                                      cs.W)]
+    cases += [("train", s) for s in bounds.level_shapes(
+        levels, cs.CDF97_TRAIN_B, cs.TRAIN_P, cs.TRAIN_P)]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    sums = {}
+    for path, shape in cases:
+        x = torch.randn(shape, device="cuda", generator=gen)
+        with torch.no_grad():
+            ll, pack = plain_level(x)
+            got = analysis(x)
+            back = synthesis(ll, pack)
+            torch.cuda.synchronize()
+            err = max(bounds.rel_err(got[0], ll), bounds.rel_err(got[1], pack),
+                      bounds.rel_err(back, x))
+            del got, back
+            for way, fn in (("analysis", lambda: analysis(x)),
+                            ("synthesis", lambda: synthesis(ll, pack))):
+                us, source = bounds.device_us(torch, fn)
+                row = {"kernel": "lift97", "form": form, "way": way,
+                       "path": path, "x": list(shape), "max_rel_err": err,
+                       "ms": cs.time_ms(fn, torch, min_ms=20.0),
+                       "device_us": us, "device_source": source,
+                       "host_us": bounds.host_us(torch, fn),
+                       "bound_ms": 2 * x.numel() * 4 / bounds.PEAK_BYTES
+                       * 1e3}
+                print(json.dumps(row), flush=True)
+                key = f"{path}:{way}"
+                for k in ("ms", "bound_ms"):
+                    sums[f"{key}:{k}"] = sums.get(f"{key}:{k}", 0.0) + row[k]
+                sums[f"{key}:device_ms"] = sums.get(f"{key}:device_ms", 0.0) \
+                    + row["device_us"] / 1e3
+        del x, ll, pack
+    print(json.dumps({"root": root, "kernel": "lift97", "form": form,
+                      "card": card, "per_step": sums}), flush=True)
+    return 0
 
 
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(here)))
-    ap.add_argument("--kernel", choices=("conv_v2", "conv3x3_halo"),
+    ap.add_argument("--kernel", choices=("conv_v2", "conv3x3_halo", "lift97"),
                     default="conv_v2")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
@@ -100,6 +145,8 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
+    if args.kernel == "lift97":
+        return lift97_bench(torch, cs, bounds, card, root)
     if args.kernel == "conv_v2":
         mod, dtype, dname = v2, torch.bfloat16, "bfloat16"
         plain = v2.conv_v2_plain
@@ -137,11 +184,12 @@ def main() -> int:
             err = ((got - want).abs().max() / want.abs().max()).item()
             del got, want
             run = lambda: mod.launch_kernel(xl, w9)  # noqa: E731
+            us, source = bounds.device_us(torch, run, name)
             row = {"kernel": args.kernel, "path": path, "x": [b, cin, h, w],
                    "cout": cout, "launches_per_step": n, "max_rel_err": err,
                    "ms": cs.time_ms(run, torch),
-                   "device_us": device_us(torch, run, name),
-                   "host_us": host_us(torch, run),
+                   "device_us": us, "device_source": source,
+                   "host_us": bounds.host_us(torch, run),
                    "library_ms": cs.time_ms(
                        lambda: F.conv2d(xl, wl, padding=1), torch),
                    "bound_ms": bounds.conv_bound(b * h * w, cin, cout,

@@ -1,7 +1,9 @@
 """The hand-written kernels against their plain versions, on the card:
 the 3x3 conv Function forward and backward in both operand types (fp32:
 conv3x3_halo; bf16: the tensor-core conv_v2), each conv kernel alone, and
-the CDF 9/7 ladder's analysis and synthesis kernels in all four uses. Imports no JAX, so it runs where only PyTorch is installed:
+the CDF 9/7 ladder's analysis and synthesis kernels in all four uses, along
+one axis and over a whole level (adjoints, repeats, the launches of the
+multi-level transform and its backward). Imports no JAX, so it runs where only PyTorch is installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -316,29 +318,92 @@ def test_ladder_kernels_match_plain(card, shape, dim):
             assert err < LADDER_TOL, (name, err)
 
 
+# level kernels beyond LADDER_SHAPES: W % 4 != 0 (scalar copies), the CDF97
+# eval path's deepest level (small tiles), the train path's deepest
+LEVEL_SHAPES = [
+    (2, 1, 10, 22),
+    (8, 3, 64, 96),
+    (4, 3, 32, 32),
+]
+
+
+def _fdot(a, b):
+    return float((a.double() * b.double()).sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", LADDER_SHAPES + LEVEL_SHAPES)
+def test_level_kernels_match_plain(card, shape):
+    """One launch a level in all four uses against the plain level, the
+    adjoint identities <A x, y> = <x, A^T y> of the analysis and of the
+    synthesis level, and bit-identical outputs from run to run."""
+    rng = np.random.RandomState(sum(shape))
+    x = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(card)
+    b, c, h, w = shape
+    half = (b, c, h // 2, w // 2)
+    ll = torch.from_numpy(rng.randn(*half).astype(np.float32)).to(card)
+    pack = torch.from_numpy(rng.randn(b, 3 * c, h // 2, w // 2).astype(
+        np.float32)).to(card)
+    got = {}
+    for name, ladder in USES:
+        lift97.launches_lift = lift97.launches_ilift = 0
+        if ladder in (lift97.FORWARD, lift97.INVERSE_T):
+            got[name] = lift97.launch_level_analysis(x, ladder)
+            again = lift97.launch_level_analysis(x, ladder)
+            want = dwt97.level_analysis_plain(x, ladder)
+            counts = (2, 0)
+        else:
+            got[name] = (lift97.launch_level_synthesis(ll, pack, ladder),)
+            again = (lift97.launch_level_synthesis(ll, pack, ladder),)
+            want = (dwt97.level_synthesis_plain(ll, pack, ladder),)
+            counts = (0, 2)
+        torch.cuda.synchronize()
+        assert (lift97.launches_lift, lift97.launches_ilift) == counts, name
+        for g, a, w_ in zip(got[name], again, want):
+            assert g.shape == w_.shape, name
+            err = (g - w_).abs().max().item() / w_.abs().max().item()
+            assert err < LADDER_TOL, (name, err)
+            assert torch.equal(g, a), name
+    fx, (fty,) = got["F"], got["F_T"]
+    lhs = _fdot(fx[0], ll) + _fdot(fx[1], pack)
+    norm = (_fdot(fx[0], fx[0]) + _fdot(fx[1], fx[1])) ** 0.5 \
+        * (_fdot(ll, ll) + _fdot(pack, pack)) ** 0.5
+    assert abs(lhs - _fdot(x, fty)) <= LADDER_TOL * norm
+    (ix,), itx = got["I"], got["I_T"]
+    lhs = _fdot(ix, x)
+    norm = _fdot(ix, ix) ** 0.5 * _fdot(x, x) ** 0.5
+    assert abs(lhs - _fdot(ll, itx[0]) - _fdot(pack, itx[1])) \
+        <= LADDER_TOL * norm
+
+
 @pytest.mark.cuda
 def test_ladder_on_the_card_never_takes_the_plain_path(card, monkeypatch):
     """dwt97 forward and inverse, and their gradients, on a CUDA tensor:
-    three launches a level each way, the backward through the kernels, and
+    one launch a level each way, the backward through the kernels, and
     the plain ladder never called."""
     def refuse(*args, **kwargs):
         raise AssertionError("a CUDA tensor reached the plain ladder")
 
-    monkeypatch.setattr(lift97, "analysis_plain", refuse)
-    monkeypatch.setattr(lift97, "synthesis_plain", refuse)
+    for name in ("analysis_plain", "synthesis_plain"):
+        monkeypatch.setattr(lift97, name, refuse)
+    for name in ("level_analysis_plain", "level_synthesis_plain"):
+        monkeypatch.setattr(dwt97, name, refuse)
     x = torch.rand(2, 3, 32, 48, device=card, requires_grad=True)
     lift97.launches_lift = lift97.launches_ilift = 0
     ll, highs = dwt97.dwt97_forward(x, 3)
     y = dwt97.dwt97_inverse(ll, highs)
-    assert (lift97.launches_lift, lift97.launches_ilift) == (9, 9)
+    assert (lift97.launches_lift, lift97.launches_ilift) == (3, 3)
     y.backward(torch.ones_like(y))
     torch.cuda.synchronize()
     # the inverse's backward runs the analysis kernel, the forward's the
-    # synthesis kernel
-    assert (lift97.launches_lift, lift97.launches_ilift) == (18, 18)
+    # synthesis kernel, one launch a level each
+    assert (lift97.launches_lift, lift97.launches_ilift) == (6, 6)
     assert (y - x).abs().max().item() < 1e-5
     assert (x.grad - 1).abs().max().item() < 1e-5   # the identity's gradient
     with pytest.raises(ValueError, match="even"):
         dwt97.lift97_1d(torch.zeros(1, 1, 6, 5, device=card), 3)
     with pytest.raises(ValueError, match="lifted length"):
         lift97.launch_analysis(torch.zeros(1, 1, 6, 5, device=card), 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        lift97.launch_level_analysis(
+            torch.zeros(1, 1, 8, 8, device=card).transpose(2, 3))
