@@ -115,11 +115,49 @@ fp32, random weights from the port's seeded init):
 19. cdf97_agent  the CLI on the config cut to 2 steps an epoch and 2
            epochs, then ``--resume-training``, then ``mode: test``.
 
+Then the tree-based entropy models, onlyEZWT (prefix ``ezwt``) and ZTBlock
+(``ztblock``): the flagship config with only ``entropy_layer`` changed, at
+full width (three per-plane codecs, 4 levels, learned lifting, Berk AEs),
+the transform from the lambda=2000 snapshot and the entropy model from the
+port's seeded init (no trained weights of these models exist). For each:
+
+20. {m}_parity  fp32 card vs CPU: the eval step on one 256x256 image (RD
+           terms 1e-4, xhat mean |d| 1e-5), one train step of 2 x 128x128
+           (gradients 1e-2 per tensor, ZTBlock 5e-2 (``TREE_GRAD_TOL``),
+           1e-3 on the L2, cuDNN deterministic), launches as reckoned;
+21. {m}_main  the B=8 512x768 eval step in fp32 and in bf16: ms a step,
+           MP/s, the entropy models' own ms on the step's subbands, one
+           step profiled (``{m}_profile_float32`` / ``_bfloat16``);
+           launches gated (onlyEZWT: 138 of kernel 1 in fp32; 120 of
+           kernel 4 and its plc's 18 of kernel 1 in bf16; ZTBlock: 120,
+           its dep-nets on cuDNN);
+22. {m}_train  the bf16 B=8 256x256 train step: ms a step, launches gated
+           (kernel 4 forward and dx; onlyEZWT's plc forward and dx on
+           kernel 1), one step profiled;
+23. {m}_bitstream  the entropy model fitted first (Adam on the entropy
+           models alone over a seeded batch's subbands, the transform
+           frozen), then the real bitstream in fp32 of the 19 held-out
+           images: lossless, each image's real rate within 3 % of its
+           likelihood rate under the coding path's contexts (the eval
+           step's rate beside it: ZTBlock's eval forward quantizes its
+           contexts otherwise), two images coded on the CPU too (0.5 %
+           bpp, 0.02 dB), s/image with the card/host split, one round trip
+           profiled; 156 kernel-1 launches an image for onlyEZWT (the AEs'
+           120, the plc's 18 in the encoder's chain and 18 in the decoder's
+           passes), 120 for ZTBlock;
+24. coding_many (after ezwt_bitstream)  ``compress_decompress_many`` over
+           eight of those images at workers 1 and 2: the streams of
+           sequential coding byte for byte, s/image;
+25. {m}_agent  the CLI on the flagship config with the entropy layer
+           changed (one epoch of 2 steps of 2 x 64x64), resumed, then
+           ``mode: test``.
+
 Then a ``kernels`` line, the card's name and power limit again, and the
 last line ``{"ok": true, "device": {...}}``.
 
 TF32 is off (cuDNN and matmul) for every fp32 comparison and fp32 run:
-phases 3 to 7, the fp32 steps of phase 8, phases 11 and 12, 14, 15 and 18.
+phases 3 to 7, the fp32 steps of phase 8, phases 11 and 12, 14, 15, 18,
+20, the fp32 steps of 21, 23 to 25.
 """
 
 from __future__ import annotations
@@ -161,6 +199,18 @@ RD_FLAGSHIP = os.path.join(HERE, "results", "rd_flagship.json")
 BITSTREAM_IMAGES = (19, 256, 9999)  # synthetic_natural_images(n, size, seed)
 KODAK_IMAGES = 2                 # bitstream_bf16's timed 512x768 images
 CDF97_BITSTREAM_IMAGES = 4       # 256x256
+# the tree-based entropy models: (phase prefix, entropy_layer, Adam steps
+# fitting the entropy model before the bitstream; a ZTBlock step is
+# host-bound by its 216 dep-nets, ~0.44 s on the H100's host)
+TREE_MODELS = (("ezwt", "onlyEZWT", 500),
+               ("ztblock", "DWTConditioned2EntropyLayerZTBlock", 100))
+TREE_SEED = 0                    # the entropy models' init
+TREE_TRAIN_STEPS = 3             # timed bf16 train steps of each
+TREE_FIT_LR = 1e-3               # the fit: Adam over the snapshot
+TREE_FIT_BATCH = (8, 128)        # transform's subbands of 8 seeded patches
+TREE_CPU_IMAGES = 2              # bitstream images also coded on the CPU
+TREE_AGENT = dict(AGENT, steps_per_epoch=2, max_epoch=1, patch_size=64)
+CODING_MANY = 8                  # images of phase coding_many (256x256)
 DEV = "cuda"
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, fp32 CUDA
 # cores, HBM3.
@@ -186,6 +236,14 @@ PARITY_RTOL = 1e-4  # loss, mse, rates: card vs CPU, fp32
 # the difference over all gradients together.
 GRAD_TOL = 1e-2
 GRAD_L2_TOL = 1e-3
+# ZTBlock's dep-net gradients are worse conditioned still: against the same
+# step in float64 (tools/grad_conditioning.py --entropy-layer
+# DWTConditioned2EntropyLayerZTBlock, the snapshot's transform and the
+# seeded entropy model, 2 x 128x128) the CPU's fp32 gradient is 1.2e-2 off
+# in its worst tensor and the card's 2.7e-2 (a dep-net bias where the CPU
+# is within 3.2e-5), while the L2 of the card-CPU difference is 1.7e-4.
+# Its per-tensor limit is twice the card's distance from float64.
+TREE_GRAD_TOL = {"ezwt": GRAD_TOL, "ztblock": 5e-2}
 LADDER_TOL = 1e-5   # ladder kernel vs plain, of max |plain|: the same fp32
                     # expressions, contracted into FMAs by the compiler
 ADJOINT_TOL = 1e-5  # |<Fx, y> - <x, F^T y>| / (|Fx| |y|), fp32 values
@@ -212,6 +270,7 @@ BITSTREAM_BF16_PSNR_TOL = 0.2  # dB
 # CDF97: the real rate against the eval step's likelihood rate (rANS
 # overhead and the escape coding past the tables' range)
 CDF97_REAL_BPP_RTOL = 3e-2
+TREE_REAL_BPP_RTOL = 3e-2        # the same gate for onlyEZWT and ZTBlock
 
 
 def emit(obj) -> None:
@@ -317,9 +376,27 @@ def conv_shapes(cfg, size=None):
     for lvl in range(1, L + 1):
         add(height >> lvl, width >> lvl, berk(so), 2)
     add(height >> L, width >> L, berk(cfg.clrch), 2)
-    for lvl in range(1, L):                       # plc of finer level lvl-1
-        add(height >> lvl, width >> lvl, [(so, so * 81), (so * 81, so * 81)], 1)
+    if has_plc(cfg):
+        for lvl in range(1, L):                   # plc of finer level lvl-1
+            add(height >> lvl, width >> lvl,
+                [(so, so * 81), (so * 81, so * 81)], 1)
     return counts
+
+
+def has_plc(cfg):
+    """Whether the entropy model has dense 3x3 parent-context stacks (two
+    layers a finer level): ZTsep's in the config's dtype, onlyEZWT's in
+    fp32 always; ZTBlock's dep-nets are cuDNN convs."""
+    return cfg.entropy_layer in ("conditioned2ZTsepSubbands", "onlyEZWT")
+
+
+def plc_launches(cfg):
+    """onlyEZWT's plc launches a step or an image's coding pass: two a finer
+    level on every plane, kernel 1 whatever the config's dtype."""
+    if cfg.entropy_layer != "onlyEZWT":
+        return 0
+    planes = 3 if cfg.clrch == 1 else 1
+    return 2 * (cfg.dwtlevels - 1) * planes
 
 
 @contextlib.contextmanager
@@ -1286,6 +1363,430 @@ def phase_bitstream_bf16(torch, np, pkg, counts, fp32_rows):
     return res
 
 
+# --- the tree-based entropy models (onlyEZWT, ZTBlock) ----------------------
+
+def tree_config(pkg, entropy_layer, **kw):
+    """The flagship config with only ``entropy_layer`` changed."""
+    return pkg.config.flagship_config(entropy_layer=entropy_layer, **kw)
+
+
+def tree_model(torch, pkg, cfg):
+    """The flagship codec with a tree-based entropy model: the transform
+    from the lambda=2000 snapshot, the entropy model from the port's init
+    with seed ``TREE_SEED`` (the repository holds no trained weights for
+    these models)."""
+    model = pkg.codec.CodecWrapper(
+        cfg, generator=torch.Generator().manual_seed(TREE_SEED))
+    flat = {k: v for k, v in pkg.weights.load_npz(SNAPSHOT).items()
+            if "['transform']" in k}
+    missing, unexpected = model.load_state_dict(
+        pkg.weights.state_dict_from_flax(flat), strict=False)
+    if unexpected or any(".transform." in k for k in missing):
+        raise AssertionError(f"snapshot transform: missing {missing[:4]}, "
+                             f"unexpected {unexpected[:4]}")
+    return model
+
+
+def grad_gaps(got_g, want_g):
+    """Per-tensor max |g_card - g_cpu| / max |g_cpu|, and the L2 norm of the
+    difference over all gradients against theirs."""
+    errs = {n: rel_err(got_g[n], want_g[n]) for n in want_g}
+    l2 = (sum(float((got_g[n] - want_g[n]).double().pow(2).sum())
+              for n in want_g)
+          / sum(float(want_g[n].double().pow(2).sum()) for n in want_g)) ** 0.5
+    return errs, l2
+
+
+def phase_tree_parity(torch, np, pkg, counts, key, el):
+    """fp32, card vs CPU, with the same weights: the eval step on one 256x256
+    image, then one train step on a seeded batch (cuDNN deterministic; noise
+    from a CPU generator with one seed feeds both)."""
+    cfg = tree_config(pkg, el, lambda_=2000.0, learning_rate=TRAIN_LR)
+    img = pkg.data.synthetic_natural_images(1, 256, seed=0)[0]
+    x = torch.from_numpy(img).permute(2, 0, 1)[None].float() / 255.0
+    cpu_model = tree_model(torch, pkg, cfg)
+    gpu_model = copy.deepcopy(cpu_model)
+    want, want_xhat = pkg.state.make_eval_step(cfg, cpu_model, "cpu")(x)
+    step = pkg.state.make_eval_step(cfg, gpu_model, DEV)
+    counts.reset()
+    got, got_xhat = step(x)
+    torch.cuda.synchronize()
+    eval_launches = counts.read()
+    d = (got_xhat.cpu() - want_xhat).abs()
+    res = {"phase": f"{key}_parity", "entropy_layer": el,
+           "image": [1, 3, 256, 256], "dtype": "float32",
+           "launches": eval_launches, "xhat_max_abs_err": d.max().item(),
+           "xhat_mean_abs_err": d.mean().item()}
+    bad = []
+    for k in ("loss", "mse", "rate1", "rate2"):
+        a, b = float(getattr(got, k)), float(getattr(want, k))
+        res[k] = {"card": a, "cpu": b, "rel_err": abs(a - b) / abs(b)}
+        if not res[k]["rel_err"] <= PARITY_RTOL:
+            bad.append(k)
+    if not res["xhat_mean_abs_err"] <= XHAT_MEAN_TOL:
+        bad.append("xhat")
+    del cpu_model, gpu_model, step
+
+    batch = train_batch(torch, np, pkg, PARITY_B, PARITY_P, seed=2)
+    results = {}
+    for dev in ("cpu", DEV):
+        model = tree_model(torch, pkg, cfg)
+        tstep = pkg.state.make_train_step(
+            cfg, model, pkg.state.make_optimizer(cfg, model), dev)
+        counts.reset()
+        out, aux = tstep(batch, torch.Generator().manual_seed(3), TRAIN_LR,
+                         1.0)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        results[dev] = (out, float(aux), counts.read(),
+                        {n: p.grad.detach().cpu()
+                         for n, p in model.named_parameters()})
+        del model, tstep
+    (t_want, aux_want, cpu_counts, want_g), (t_got, aux_got, train_counts,
+                                             got_g) = results["cpu"], \
+        results[DEV]
+    tr = {"batch": [PARITY_B, 3, PARITY_P, PARITY_P],
+          "launches": train_counts, "aux": {"card": aux_got, "cpu": aux_want}}
+    for k in ("loss", "mse", "rate1", "rate2"):
+        a, b = float(getattr(t_got, k)), float(getattr(t_want, k))
+        tr[k] = {"card": a, "cpu": b, "rel_err": abs(a - b) / abs(b)}
+        if not tr[k]["rel_err"] <= PARITY_RTOL:
+            bad.append(f"train {k}")
+    errs, l2 = grad_gaps(got_g, want_g)
+    worst = max(errs, key=errs.get)
+    tr.update(grad_tensors=len(errs), grad_worst=worst,
+              grad_worst_rel_err=errs[worst],
+              grad_tensors_over_1e_3=sum(e > 1e-3 for e in errs.values()),
+              grad_l2_rel_err=l2)
+    res["train"] = tr
+    emit(res)
+    if not errs[worst] <= TREE_GRAD_TOL[key] or not l2 <= GRAD_L2_TOL:
+        bad.append(f"gradient {worst}")
+    if bad:
+        raise AssertionError(f"{key}: card and CPU disagree: {bad}")
+    expect_launches((eval_launches, cpu_counts, train_counts),
+                    (reckon_step(cfg), launches_of(),
+                     reckon_step(cfg, True, (PARITY_P, PARITY_P))),
+                    f"{key} parity (eval card, train cpu, train card)")
+    return res
+
+
+def subband_batch(torch, pkg, model, batch):
+    """The three planes' subbands of ``batch`` (no gradient): the entropy
+    models' inputs."""
+    ycbcr = pkg.color.shift_ycbcr(pkg.color.rgb_to_ycbcr(batch))
+    with torch.inference_mode():
+        return [model.codecs[p].transform.encode(ycbcr[:, p:p + 1])
+                for p in range(3)]
+
+
+def phase_tree_main(torch, np, pkg, counts, key, el):
+    """The eval step at B=8 512x768 in fp32 (TF32 off) and in bf16: ms a
+    step, MP/s, the kernels' launches against the reckoning, the entropy
+    models' own time on the step's subbands, and one step profiled."""
+    imgs = pkg.data.synthetic_natural_images(B, W, seed=0)
+    batch = torch.from_numpy(np.stack(imgs)[:, :H]).permute(0, 3, 1, 2)
+    batch = batch.float().div(255.0).to(DEV)
+    res = {"phase": f"{key}_main", "entropy_layer": el, "batch": [B, 3, H, W],
+           "steps": STEPS}
+    for dtype in ("float32", "bfloat16"):
+        cfg = tree_config(pkg, el, dtype=dtype, lambda_=2000.0)
+        model = tree_model(torch, pkg, cfg)
+        step = pkg.state.make_eval_step(cfg, model, DEV)
+        ctx = tf32_off(torch) if dtype == "float32" \
+            else contextlib.nullcontext()
+        with ctx:
+            step(batch)                               # warm-up
+            torch.cuda.synchronize()
+            counts.reset()
+            times = []
+            for _ in range(STEPS):
+                t0 = time.perf_counter()
+                out, xhat = step(batch)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            launches = counts.read()
+            expect_launches(launches, {k: STEPS * v for k, v in
+                                       reckon_step(cfg).items()},
+                            f"{key} {STEPS} {dtype} eval steps")
+            subs = subband_batch(torch, pkg, model, batch)
+            ems = [model.codecs[p].entropymodel for p in range(3)]
+
+            @torch.inference_mode()
+            def entropy():
+                for em, (xe, xo) in zip(ems, subs):
+                    em(xe, xo)
+
+            entropy_ms = time_ms(entropy, torch, min_ms=0.0, max_reps=STEPS)
+            ms = [t * 1e3 for t in times]
+            phase_profile(torch, lambda: step(batch), sum(ms) / len(ms),
+                          f"{key}_profile_{dtype}")
+        bpp = float(out.rate1 + out.rate2)
+        psnr = float(pkg.loss.psnr(batch - 0.5, xhat))
+        if not all(math.isfinite(v) for v in (bpp, psnr, float(out.loss))) \
+                or tuple(xhat.shape) != (B, 3, H, W):
+            raise AssertionError(f"{key} {dtype}: bpp {bpp} psnr {psnr}")
+        mean_s = sum(times) / len(times)
+        res[dtype] = {"ms_per_step": mean_s * 1e3, "ms_per_step_min": min(ms),
+                      "ms_per_step_all": ms,
+                      "mp_per_s": B * H * W / 1e6 / mean_s,
+                      "entropy_model_ms": entropy_ms,
+                      "entropy_model_share": entropy_ms / (mean_s * 1e3),
+                      "bpp": bpp, "psnr_db": psnr, "launches": launches,
+                      "reckoned_per_step": reckon_step(cfg)}
+        del model, step, subs, ems, out, xhat
+        torch.cuda.empty_cache()
+    emit(res)
+    return res
+
+
+def phase_tree_train(torch, np, pkg, counts, key, el):
+    """bf16 train steps at B=8 256x256, Adam at lr 1e-4: 2 warm-up and
+    ``TREE_TRAIN_STEPS`` timed, launches against the reckoning (onlyEZWT's
+    plc forward and dx on kernel 1, everything else on conv_v2), then one
+    step profiled."""
+    cfg = tree_config(pkg, el, dtype="bfloat16", lambda_=2000.0,
+                      learning_rate=TRAIN_LR)
+    batch = train_batch(torch, np, pkg, TRAIN_B, TRAIN_P, seed=1).to(DEV)
+    model = tree_model(torch, pkg, cfg)
+    step = pkg.state.make_train_step(
+        cfg, model, pkg.state.make_optimizer(cfg, model), DEV)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+
+    def run_step():
+        return step(batch, gen, TRAIN_LR, 1.0)[0]
+
+    for _ in range(TRAIN_WARMUP):
+        run_step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts.reset()
+    times, outs = [], []
+    for _ in range(TREE_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        outs.append(run_step())
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = counts.read()
+    per = reckon_step(cfg, True, (TRAIN_P, TRAIN_P))
+    expect_launches(launches, {k: TREE_TRAIN_STEPS * v
+                               for k, v in per.items()},
+                    f"{key} {TREE_TRAIN_STEPS} bf16 train steps")
+    losses = [float(o.loss) for o in outs]
+    if not all(math.isfinite(v) for v in losses) or not all(
+            torch.isfinite(p).all() for p in model.parameters()):
+        raise AssertionError(f"{key}: non-finite training: {losses}")
+    ms = [t * 1e3 for t in times]
+    mean_s = sum(times) / len(times)
+    phase_profile(torch, run_step, mean_s * 1e3, f"{key}_train_profile")
+    res = {"phase": f"{key}_train", "entropy_layer": el, "dtype": "bfloat16",
+           "batch": [TRAIN_B, 3, TRAIN_P, TRAIN_P], "lr": TRAIN_LR,
+           "warmup_steps": TRAIN_WARMUP, "steps": TREE_TRAIN_STEPS,
+           "ms_per_step": mean_s * 1e3, "ms_per_step_min": min(ms),
+           "ms_per_step_all": ms,
+           "mp_per_s": TRAIN_B * TRAIN_P * TRAIN_P / 1e6 / mean_s,
+           "loss": losses,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": launches, "reckoned_per_step": per}
+    emit(res)
+    return res
+
+
+def fit_entropy_models(torch, np, pkg, model, steps):
+    """Adam on the three planes' entropy models alone (the transform
+    frozen) over a seeded batch's subbands, ``steps`` steps of the rate
+    plus the bottlenecks' aux loss: a seeded entropy model puts most
+    samples in a Gaussian's far tail, where the likelihood's 1e-9 floor,
+    not the coder, sets the rate. Returns the rate before and after."""
+    n, size = TREE_FIT_BATCH
+    batch = train_batch(torch, np, pkg, n, size, seed=4).to(DEV)
+    subs = subband_batch(torch, pkg, model, batch)
+    subs = [(xe.clone(), [t.clone() for t in xo]) for xe, xo in subs]
+    ems = [model.codecs[p].entropymodel for p in range(3)]
+    opt = torch.optim.Adam([q for em in ems for q in em.parameters()],
+                           lr=TREE_FIT_LR)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    rates = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        opt.zero_grad(set_to_none=True)
+        bits, aux = 0.0, 0.0
+        for em, (xe, xo) in zip(ems, subs):
+            ixe, ixo, _, _ = em(xe, xo, True, gen)
+            bits = bits + ixe.sum() + sum(t.sum() for t in ixo)
+            aux = aux + em.aux_loss()
+        rate = bits / (n * size * size)
+        (rate + aux).backward()
+        opt.step()
+        rates.append(float(rate.detach()))
+    torch.cuda.synchronize()
+    return {"steps": steps, "lr": TREE_FIT_LR,
+            "batch": [n, 3, size, size], "bpp_first": rates[0],
+            "bpp_last": rates[-1], "seconds": time.perf_counter() - t0}
+
+
+def coding_likelihood_bpp(torch, pkg, model, image):
+    """One image's likelihood rate under the coding path's own contexts: the
+    bottlenecks' (LL, coarsest details) as in the eval step, and for each
+    finer level, or ZTBlock coset, -log2 of the Gaussian likelihood with the
+    (sigma, mu) of the parameter pass on the writebacks ``round(x - mu) +
+    mu`` of the levels and cosets before it. onlyEZWT's eval step uses the
+    same contexts; ZTBlock's quantizes its cosets' contexts as ``round(x)``
+    (as in the JAX package), so its eval-step rate is not the coded one."""
+    em_mod = pkg.entropy_models
+    x = torch.from_numpy(image).permute(2, 0, 1)[None].float().div(255.0)
+    ycbcr = pkg.color.shift_ycbcr(pkg.color.rgb_to_ycbcr(x.to(DEV)))
+    bits = 0.0
+    with torch.inference_mode():
+        for p in range(3):
+            codec = model.codecs[p]
+            em = codec.entropymodel
+            xe, xo = codec.transform.encode(ycbcr[:, p:p + 1])
+            info_xe, info_xo, _, xo_q = em(xe, xo)
+            bits += float(info_xe.sum()) + float(info_xo[-1].sum())
+            con = xo_q[-1]
+            for step, lvl in enumerate(range(len(xo) - 2, -1, -1)):
+                if isinstance(em, em_mod.OnlyEZWT):
+                    sigma, mu = em.level_params_from_parent(lvl, con)
+                    con, info = pkg.gaussian.self_information_bits(
+                        xo[lvl], sigma, mu)
+                    bits += float(info.sum())
+                    continue
+                parts, cosets = em_mod._cosets(xo[lvl]), []
+                for k in range(4):
+                    sigma, mu = em.level_coset_params(step, k, con, *cosets)
+                    q, info = pkg.gaussian.self_information_bits(
+                        parts[k], sigma, mu)
+                    bits += float(info.sum())
+                    cosets.append(q)
+                con = em_mod._interleave_cosets(*cosets)
+    return bits / (image.shape[0] * image.shape[1])
+
+
+def profile_round_trip(torch, coder, image, name):
+    """One image's whole round trip (transforms, the entropy models' device
+    passes, the host's coding) under torch.profiler: the device's busy
+    share of its wall time."""
+    batch = image[None].astype("float32") / 255.0
+    coder.compress_decompress(batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    coder.compress_decompress(batch)
+    torch.cuda.synchronize()
+    phase_profile(torch, lambda: coder.compress_decompress(batch),
+                  (time.perf_counter() - t0) * 1e3, name)
+
+
+def phase_tree_bitstream(torch, np, pkg, counts, key, el, fit_steps):
+    """The real bitstream in fp32 of the 19 dead-leaves images of the
+    held-out set: the snapshot's transform, the entropy model fitted
+    (``fit_entropy_models``); every plane decodes bit for bit (the coder
+    raises otherwise), each image's real rate within 3 % of its likelihood
+    rate under the coding path's contexts (``coding_likelihood_bpp``; the
+    eval step's rate is reported beside it), a few images coded on the CPU
+    too; s/image with the card/host split; launches an image against the
+    reckoning. Returns the result, the coder and the images."""
+    cfg = tree_config(pkg, el, lambda_=2000.0)
+    model = tree_model(torch, pkg, cfg).to(DEV)
+    fit = fit_entropy_models(torch, np, pkg, model, fit_steps)
+    step = pkg.state.make_eval_step(cfg, model, DEV)
+    n, size, seed = BITSTREAM_IMAGES
+    images = pkg.data.synthetic_natural_images(n, size, seed=seed)
+    eval_rate = []
+    for img in images:
+        out, _ = step(torch.from_numpy(img).permute(2, 0, 1)[None].float()
+                      / 255.0)
+        eval_rate.append(float(out.rate1 + out.rate2))
+    likelihood = [coding_likelihood_bpp(torch, pkg, model, img)
+                  for img in images]
+    coder = pkg.codec_coder.CodecCoder(cfg, model, DEV)
+    want = reckon_coding(cfg)
+    rows = code_images(torch, pkg, counts, coder, images, want,
+                       f"{key}_bitstream")
+    for r, lik, ev in zip(rows, likelihood, eval_rate):
+        r["likelihood_bpp"], r["eval_step_bpp"] = lik, ev
+    cpu = pkg.codec_coder.CodecCoder(cfg, copy.deepcopy(model).cpu(), "cpu")
+    cpu_rows = []
+    for k, img in enumerate(images[:TREE_CPU_IMAGES]):
+        t0 = time.perf_counter()
+        r = cpu.compress_decompress(img[None].astype("float32") / 255.0)
+        cpu_rows.append({"image": k, "bpp": r.bpp, "psnr": r.psnr,
+                         "wall_s": time.perf_counter() - t0})
+    profile_round_trip(torch, coder, images[1], f"{key}_bitstream_profile")
+    res = {"phase": f"{key}_bitstream", "entropy_layer": el,
+           "dtype": "float32", "images": [n, 3, size, size], "fit": fit,
+           "cpu_count": os.cpu_count(),
+           "mean_bpp": mean(rows, "bpp"), "mean_psnr_db": mean(rows, "psnr"),
+           "mean_likelihood_bpp": mean(rows, "likelihood_bpp"),
+           "mean_eval_step_bpp": mean(rows, "eval_step_bpp"),
+           "max_bpp_rel_gap": max(abs(r["bpp"] - r["likelihood_bpp"])
+                                  / r["likelihood_bpp"] for r in rows),
+           "max_bpp_rel_gap_to_eval_step": max(
+               abs(r["bpp"] - r["eval_step_bpp"]) / r["eval_step_bpp"]
+               for r in rows),
+           "cpu": cpu_rows,
+           "cpu_max_bpp_rel_gap": max(abs(c["bpp"] - r["bpp"]) / r["bpp"]
+                                      for c, r in zip(cpu_rows, rows)),
+           "cpu_max_psnr_gap_db": max(abs(c["psnr"] - r["psnr"])
+                                      for c, r in zip(cpu_rows, rows)),
+           "launches_per_image": want,
+           "first_image_s": rows[0]["wall_s"],
+           **{f"mean_{k}": mean(rows, k, skip=1) for k in (
+               "wall_s", "encode_s", "decode_s", "analysis_card_ms",
+               "synthesis_card_ms", "encode_host_ms", "decode_host_ms",
+               "coded_mp_per_s")},
+           "per_image": [{k: r[k] for k in ("bpp", "likelihood_bpp",
+                                            "eval_step_bpp", "psnr",
+                                            "wall_s")} for r in rows]}
+    emit(res)
+    if not res["max_bpp_rel_gap"] <= TREE_REAL_BPP_RTOL:
+        raise AssertionError(f"{key}_bitstream: real rate off the "
+                             "likelihood rate")
+    if not res["cpu_max_bpp_rel_gap"] <= TARGET_BPP_RTOL \
+            or not res["cpu_max_psnr_gap_db"] <= TARGET_PSNR_TOL:
+        raise AssertionError(f"{key}_bitstream: card and CPU disagree")
+    return res, coder, images
+
+
+def phase_coding_many(torch, pkg, counts, coder, images, key):
+    """``compress_decompress_many`` over ``CODING_MANY`` images at workers 1
+    and 2 on one coder: the streams of sequential coding, byte for byte,
+    and s/image at each setting. Launches are gated at one worker; at two,
+    the images' threads add to the module counters at once, so their sum
+    is reported only."""
+    batches = [img[None].astype("float32") / 255.0
+               for img in images[:CODING_MANY]]
+    t0 = time.perf_counter()
+    seq = [coder.compress_decompress(b) for b in batches]
+    seq_s = time.perf_counter() - t0
+    res = {"phase": "coding_many", "entropy_layer": coder.cfg.entropy_layer,
+           "model": key, "images": [len(batches), 3, *images[0].shape[:2]],
+           "cpu_count": os.cpu_count(), "sequential_s": seq_s}
+    for workers in (1, 2):
+        counts.reset()
+        t0 = time.perf_counter()
+        out = coder.compress_decompress_many(batches, workers=workers)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counts.read()
+        same = [[(s.xe, s.xo) for s in a.streams]
+                == [(s.xe, s.xo) for s in b.streams]
+                for a, b in zip(out, seq)]
+        res[f"workers_{workers}"] = {
+            "wall_s": wall, "s_per_image": wall / len(batches),
+            "identical_streams": sum(same), "launches": launches}
+        if not all(same) or len(out) != len(seq):
+            emit(res)
+            raise AssertionError(f"coding_many: workers {workers} streams "
+                                 "differ from sequential coding")
+        if workers == 1:
+            expect_launches(launches, {k: len(batches) * v for k, v in
+                                       reckon_coding(coder.cfg).items()},
+                            "coding_many workers 1")
+    emit(res)
+    return res
+
+
 # --- the CDF 9/7 + factorized codec ------------------------------------------
 
 def ladder_filters(torch, lift):
@@ -1860,19 +2361,35 @@ def phase_cdf97_bitstream(torch, np, pkg, counts):
 
 def reckon_coding(cfg):
     """The kernels' launches of one image's real bitstream: the scaling
-    AEs' 3x3 convs for the flagship (fp32 here: conv3x3_halo), the ladder
-    for CDF97."""
+    AEs' 3x3 convs for the flagship (conv3x3_halo in fp32, conv_v2 in
+    bf16), and for onlyEZWT its plc stacks in the encoder's chain and the
+    decoder's passes (kernel 1 in any dtype); the ladder for CDF97."""
     if cfg.netType == "CDF97":
         lift_n, ilift_n = ladder_launches(cfg, False)
         return launches_of(lift=lift_n, ilift=ilift_n)
     n = 2 * coding_conv_launches(cfg)
-    return launches_of(v2=n) if cfg.dtype == "bfloat16" \
-        else launches_of(conv=n)
+    plc = 2 * plc_launches(cfg)
+    return launches_of(v2=n, conv=plc) if cfg.dtype == "bfloat16" \
+        else launches_of(conv=n + plc)
+
+
+def reckon_step(cfg, train=False, size=None):
+    """The kernels' launches of one flagship-type eval or train step: every
+    dense 3x3 conv forward (and in training a dx, each input lying behind
+    the lifting stage's parameters), on conv_v2 in bf16 but onlyEZWT's plc
+    stacks, which stay fp32 on kernel 1."""
+    n = sum(conv_shapes(cfg, size).values())
+    plc = plc_launches(cfg)
+    f, dx = (2, 1) if train else (1, 0)
+    if cfg.dtype == "bfloat16":
+        return launches_of(conv=f * plc, conv_dx=dx * plc, v2=f * (n - plc),
+                           v2_dx=dx * (n - plc))
+    return launches_of(conv=f * n, conv_dx=dx * n)
 
 
 def reckon_flagship_agent(cfg, n_valid):
     n_conv = sum(conv_shapes(cfg).values())
-    steps, epochs = AGENT["steps_per_epoch"], AGENT["max_epoch"]
+    steps, epochs = cfg.steps_per_epoch, cfg.max_epoch
     return launches_of(conv=epochs * (steps * 2 * n_conv + n_valid * n_conv),
                        conv_dx=epochs * steps * n_conv)
 
@@ -1923,6 +2440,30 @@ def ladder_entry(name, lift, rows, level_rows, main_res, train_res):
             "train_step_library_ms": per("library_ms", "train")}
 
 
+def tree_launch_totals(res):
+    """Each counter's launches over the counted runs of the tree-model
+    phases (parity, main, train, bitstream, coding_many, agent)."""
+    total = launches_of()
+
+    def add(d, times=1):
+        for k in total:
+            total[k] += times * d[k]
+
+    for key, _, _ in TREE_MODELS:
+        add(res[f"{key}_parity"]["launches"])
+        add(res[f"{key}_parity"]["train"]["launches"])
+        for dtype in ("float32", "bfloat16"):
+            add(res[f"{key}_main"][dtype]["launches"])
+        add(res[f"{key}_train"]["launches"])
+        add(res[f"{key}_bitstream"]["launches_per_image"],
+            BITSTREAM_IMAGES[0])
+        add(res[f"{key}_agent"]["first_run"]["launches"])
+        add(res[f"{key}_agent_test"]["launches"])
+    for workers in (1, 2):
+        add(res["coding_many"][f"workers_{workers}"]["launches"])
+    return total
+
+
 def kernel_entries(conv, v2, lift97, rows, bwd_rows, v2_rows, lift_rows,
                    level_rows, res):
     """The ``kernels`` line: every hand-written kernel with its launches on
@@ -1941,14 +2482,17 @@ def kernel_entries(conv, v2, lift97, rows, bwd_rows, v2_rows, lift_rows,
 
     k1_32, b1_32 = rows, bwd_rows        # fp32 operands
     v2_eval, v2_train = by(v2_rows, path="eval"), by(v2_rows, path="train")
+    tree = tree_launch_totals(res)
     fp32 = {"parity": res["parity"], "train_parity": res["train_parity"][0],
             "main_fp32": res["main"]["fp32_launches"]["conv3x3_halo"],
             "bitstream": res["bitstream_launches"],
             "agent": res["agent"]["first_run"]["launches"]["conv3x3_halo"],
-            "agent_test": res["agent_test"]["launches"]["conv3x3_halo"]}
+            "agent_test": res["agent_test"]["launches"]["conv3x3_halo"],
+            "tree_models": tree["conv3x3_halo"]}
     bf16 = {"main": res["main"]["launches"]["conv_v2"],
             "train": res["train"]["launches"]["conv_v2"],
-            "bitstream_bf16": res["bitstream_bf16_launches"]}
+            "bitstream_bf16": res["bitstream_bf16_launches"],
+            "tree_models": tree["conv_v2"]}
     tpu = "imagecompressionlearnedliftingandlearnedtreebasedmodels_tpu/"
     ladders = [ladder_entry(k, lift97, lift_rows, level_rows,
                             res["cdf97_main"], res["cdf97_train"])
@@ -1968,7 +2512,8 @@ def kernel_entries(conv, v2, lift97, rows, bwd_rows, v2_rows, lift_rows,
         "source": os.path.relpath(conv.SOURCE, HERE),
         "replaces": tpu + "ops/pallas_conv.py:137",
         "launches": res["train_parity"][1]
-        + res["agent"]["first_run"]["launches"]["conv3x3_halo_dx"],
+        + res["agent"]["first_run"]["launches"]["conv3x3_halo_dx"]
+        + tree["conv3x3_halo_dx"],
         "max_abs_err": max(r["dx_max_abs_err"] for r in bwd_rows),
         "dtype": "float32", "ms": per(b1_32, "dx_ms"),
         "plain_ms": per(b1_32, "dx_plain_ms"),
@@ -1979,7 +2524,8 @@ def kernel_entries(conv, v2, lift97, rows, bwd_rows, v2_rows, lift_rows,
         "source": os.path.relpath(v2.SOURCE, HERE),
         "replaces": "scripts/bench_pallas_v2.py:34",
         "launches": sum(bf16.values()), "launches_by_path": bf16,
-        "launches_dx": res["train"]["launches"]["conv_v2_dx"],
+        "launches_dx": res["train"]["launches"]["conv_v2_dx"]
+        + tree["conv_v2_dx"],
         "max_abs_err": max([r["max_abs_err"] for r in v2_rows if "ms" in r]
                            + [r["fwd_max_abs_err"] for r in v2_train]
                            + [r["dx_max_abs_err"] for r in v2_train]),
@@ -2012,7 +2558,7 @@ def main() -> int:
     from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.coding import (
         codec_coder, native_build, native_ctx, rans)
     from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.entropy import (
-        bottleneck)
+        bottleneck, gaussian, models as entropy_models)
     from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.models import (
         codec)
     from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.ops import (
@@ -2024,7 +2570,8 @@ def main() -> int:
     pkg = SimpleNamespace(cli=cli, config=config, codec=codec, weights=weights,
                           checkpoint=checkpoint, data=data, loss=loss,
                           state=state, bottleneck=bottleneck,
-                          codec_coder=codec_coder, color=color)
+                          codec_coder=codec_coder, color=color,
+                          gaussian=gaussian, entropy_models=entropy_models)
     counts = Counts(conv, v2, lift97)
     t_start = time.perf_counter()
 
@@ -2105,6 +2652,28 @@ def main() -> int:
         phase_cdf97_bitstream(torch, numpy, pkg, counts)
     phase_agent(torch, pkg, counts, CDF97_CONFIG, CDF97_AGENT,
                 reckon_cdf97_agent, reckon_coding, "cdf97_agent")
+    torch.cuda.empty_cache()
+
+    for key, el, fit_steps in TREE_MODELS:
+        with tf32_off(torch, deterministic=True):
+            res[f"{key}_parity"] = phase_tree_parity(torch, numpy, pkg,
+                                                     counts, key, el)
+        res[f"{key}_main"] = phase_tree_main(torch, numpy, pkg, counts, key,
+                                             el)
+        res[f"{key}_train"] = phase_tree_train(torch, numpy, pkg, counts,
+                                               key, el)
+        torch.cuda.empty_cache()
+        with tf32_off(torch):
+            res[f"{key}_bitstream"], coder, images = phase_tree_bitstream(
+                torch, numpy, pkg, counts, key, el, fit_steps)
+            if key == "ezwt":
+                res["coding_many"] = phase_coding_many(torch, pkg, counts,
+                                                       coder, images, key)
+            res[f"{key}_agent"], res[f"{key}_agent_test"] = phase_agent(
+                torch, pkg, counts, CONFIG, dict(TREE_AGENT, entropy_layer=el),
+                reckon_flagship_agent, reckon_coding, f"{key}_agent")
+        del coder
+        torch.cuda.empty_cache()
 
     v2_eval = [r for r in v2_rows if r["path"] == "eval"]
     v2_train = [r for r in v2_rows if r["path"] == "train"]

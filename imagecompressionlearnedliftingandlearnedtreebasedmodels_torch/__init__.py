@@ -17,8 +17,10 @@ The real bitstream codes with the host C++ of ``csrc/*.cpp``.
 
 - ``config``    the JSON config schema and the flagship configuration
 - ``ops``       color, GDN, masked convs, learned lifting, scaling AEs,
-                the 3x3 conv kernels, the 9/7 ladder kernels
-- ``entropy``   conditional Gaussian and the ZTsep subband entropy model
+                the learned x2 upscaler, the 3x3 conv kernels, the 9/7
+                ladder kernels
+- ``entropy``   conditional Gaussian, learned-CDF bottleneck and the subband
+                entropy models (factorized, onlyEZWT, ZTsep, ZTBlock)
 - ``models``    the learned lifting transform and the codec graph
 - ``train``     the rate-distortion loss, the eval and train steps, the
                 data loader, checkpoints and the training agent

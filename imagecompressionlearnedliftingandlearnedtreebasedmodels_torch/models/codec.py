@@ -18,6 +18,7 @@ from ..config import Config
 from ..entropy.bottleneck import EntropyBottleneck
 from ..entropy.models import make_entropy_model
 from ..ops.fast_conv import Conv2d, FastConv3x3
+from ..ops.upscaling import ConvTranspose2x2
 from .transforms import make_transform
 
 
@@ -89,10 +90,12 @@ class CodecWrapper(nn.Module):
 def reset_conv_weights(model: nn.Module,
                        generator: Optional[torch.Generator] = None) -> None:
     """lecun_normal conv weights (truncated normal with std 1/sqrt(fan_in)
-    at +-2 std, as flax's initializer) and zero biases."""
+    at +-2 std, as flax's initializer) and zero biases. A transposed conv's
+    fan-in is its input channels times its taps, as flax counts it."""
     for m in model.modules():
-        if isinstance(m, (Conv2d, FastConv3x3)):
-            fan_in = m.weight[0].numel()
+        if isinstance(m, (Conv2d, FastConv3x3, ConvTranspose2x2)):
+            fan_in = (m.weight[:, 0] if isinstance(m, ConvTranspose2x2)
+                      else m.weight[0]).numel()
             # flax divides by the std of the unit normal truncated at +-2
             std = 1.0 / math.sqrt(fan_in) / 0.87962566103423978
             w = torch.empty(m.weight.shape)

@@ -14,6 +14,10 @@ three ways and compared per tensor as ``max |a - b| / max |b|``:
 It answers what limit a comparison of ``card32`` with ``cpu32`` can be held
 to: no tighter than ``cpu32`` is to ``f64``. One JSON line per set of
 weights (the committed lambda=2000 snapshot and seeded random weights).
+``--entropy-layer onlyEZWT`` or ``DWTConditioned2EntropyLayerZTBlock``
+takes the flagship config with that entropy model; its "snapshot" weights
+are the snapshot's transform and the entropy model of the port's init with
+seed 0 (as ``chip_smoke.py``'s tree phases build it).
 
 The float64 step needs three things the port does not offer, so they are
 patched in for its duration only: the dense 3x3 conv is a plain
@@ -76,8 +80,14 @@ def make_model(cfg, kind: str):
     if kind == "random":
         torch.manual_seed(WEIGHT_SEED)
         return codec.CodecWrapper(cfg)
-    model = codec.CodecWrapper(cfg)
-    weights.load_flax_params(model, weights.load_npz(SNAPSHOT))
+    flat = weights.load_npz(SNAPSHOT)
+    if cfg.entropy_layer == "conditioned2ZTsepSubbands":
+        model = codec.CodecWrapper(cfg)
+        weights.load_flax_params(model, flat)
+        return model
+    model = codec.CodecWrapper(cfg, generator=torch.Generator().manual_seed(0))
+    model.load_state_dict(weights.state_dict_from_flax(
+        {k: v for k, v in flat.items() if "['transform']" in k}), strict=False)
     return model
 
 
@@ -146,12 +156,15 @@ def main(argv=None) -> int:
     ap.add_argument("--size", type=int, default=128, help="patch side")
     ap.add_argument("--weights", nargs="+", default=["snapshot", "random"],
                     choices=("snapshot", "random"))
+    ap.add_argument("--entropy-layer", default="conditioned2ZTsepSubbands",
+                    choices=config_mod.ENTROPY_LAYERS[1:])
     args = ap.parse_args(argv)
 
     use_card = args.device == "cuda"
     if use_card:
         config_mod.resolve_device()           # raises when there is no GPU
-    cfg = config_mod.flagship_config(lambda_=2000.0, learning_rate=LR)
+    cfg = config_mod.flagship_config(lambda_=2000.0, learning_rate=LR,
+                                     entropy_layer=args.entropy_layer)
     imgs = data.synthetic_natural_images(args.batch, args.size,
                                          seed=IMAGE_SEED)
     batch = torch.from_numpy(np.stack(imgs)).permute(0, 3, 1, 2).float() / 255.0

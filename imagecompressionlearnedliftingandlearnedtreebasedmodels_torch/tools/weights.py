@@ -7,7 +7,11 @@ of the committed ``results/ckpt_snapshots/*.npz`` (f16 leaves plus an
 The port names that parameter ``codecs.0.entropymodel.plc_0.Conv_1.weight``.
 
 - conv ``kernel`` (kh, kw, in/G, out) -> ``weight`` (out, in/G, kh, kw),
-  the only leaves transposed (and they must be 4-D);
+  the only leaves transposed (and they must be 4-D); under a
+  ``ConvTranspose_*`` segment the kernel (kh, kw, in, out) becomes
+  ``F.conv_transpose2d``'s (in, out, kh, kw) with its taps mirrored, since
+  flax's transposed conv (``transpose_kernel=False``) applies tap
+  ``[kh-1-a, kw-1-b]`` where PyTorch's applies ``[a, b]``;
 - ``bias``, GDN ``beta``/``gamma`` (reparametrized), lifting ``taps`` and
   gains ``nh``/``nl``, and the entropy bottlenecks' ``matrix_i``,
   ``bias_i``, ``factor_i`` and ``quantiles`` are copied raw.
@@ -30,6 +34,11 @@ _SEGMENT = re.compile(r"\['([^']*)'\]")
 _RAW_LEAF = re.compile(
     r"bias|beta|gamma|taps|nh|nl|quantiles|(matrix|bias|factor)_\d+")
 SKIP_KEYS = ("__iteration__",)
+
+
+def _transposed(name: str) -> bool:
+    """Whether port parameter ``name`` belongs to a flax ``ConvTranspose``."""
+    return any(s.startswith("ConvTranspose_") for s in name.split("."))
 
 
 def flatten_params(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -89,7 +98,8 @@ def state_dict_from_flax(flat: Mapping[str, np.ndarray]
             if t.dim() != 4:
                 raise ValueError(f"{key}: conv kernel must be 4-D, got "
                                  f"{tuple(t.shape)}")
-            t = t.permute(3, 2, 0, 1)
+            t = (t.permute(2, 3, 0, 1).flip(2, 3) if _transposed(name)
+                 else t.permute(3, 2, 0, 1))
         out[name] = t.contiguous()
     return out
 
@@ -116,7 +126,8 @@ def flax_params_from_state_dict(sd: Mapping[str, torch.Tensor]
             if t.dim() != 4:
                 raise ValueError(f"{name}: conv weight must be 4-D, got "
                                  f"{tuple(t.shape)}")
-            t = t.permute(2, 3, 1, 0)
+            t = (t.flip(2, 3).permute(2, 3, 0, 1) if _transposed(name)
+                 else t.permute(2, 3, 1, 0))
         out[flax_key(name)] = np.ascontiguousarray(t.numpy())
     return out
 

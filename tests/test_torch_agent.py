@@ -362,6 +362,44 @@ def test_cli_test_mode_codes_a_real_bitstream(tmp_path, monkeypatch, caplog):
     assert "real bitstream" in last and "avg_psnr" in last
 
 
+@pytest.mark.parametrize("entropy_layer", [
+    "onlyEZWT", "DWTConditioned2EntropyLayerZTBlock"])
+def test_cli_trains_resumes_and_codes_the_tree_entropy_models(
+        tmp_path, monkeypatch, caplog, entropy_layer):
+    """The CLI with onlyEZWT or ZTBlock: a one-epoch run, a resumed epoch
+    (its counters and Adam moments restored), then ``mode: test``: each of
+    the two 32x32 test images coded to bytes and back."""
+    monkeypatch.chdir(tmp_path)
+    images = tiny_cfg(tmp_path).valid_data
+    raw = dict(TINY, exp_name="tree", entropy_layer=entropy_layer,
+               max_epoch=1, steps_per_epoch=1, valid_data=images,
+               test_data=images, test_patch_size=32)
+    ckpt_dir = os.path.join("experiments", "tree", "checkpoints")
+    # the resumed run takes the saved epoch again, then the next one
+    for mode, argv, epochs, want in (
+            ("train", [], 1, (0, 1)),
+            ("train", ["--resume-training"], 2, (1, 3)),
+            ("test", [], 2, None)):
+        with open("tree.json", "w") as fh:
+            json.dump(dict(raw, mode=mode, max_epoch=epochs), fh)
+        with caplog.at_level("INFO", logger="lwc_torch"):
+            assert pcli.main(["--device", "cpu", *argv, "tree.json"]) == 0
+        saved = pckpt.load_checkpoint(ckpt_dir)
+        if want:
+            steps = {float(st["step"])
+                     for st in saved["optimizer"]["state"].values()}
+            assert (saved["epoch"], saved["iteration"], steps) \
+                == (*want, {float(want[1])})
+    lines = [r.getMessage() for r in caplog.records]
+    assert any("restored checkpoint 'checkpoint'" in ln for ln in lines)
+    assert any("restored checkpoint 'model_best'" in ln for ln in lines)
+    assert sum(" test image " in ln for ln in lines) == 2
+    last = [ln for ln in lines if "total_rate" in ln][-1]
+    assert "real bitstream" in last
+    assert any(k.startswith("codecs.0.entropymodel.eb_xo.")
+               for k in saved["model"])
+
+
 def test_unported_options_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="item 13"):
         ploop.LiftingDWTAgent(tiny_cfg(tmp_path, mesh_shape=(2,)),

@@ -252,7 +252,7 @@ def test_streams_of_another_evaluator_or_build_are_refused(coders):
         pwf.decompress_ztsep(pcoder, 0, bad, *shapes)
 
 
-def test_unported_entropy_models_and_tiling_raise(coders):
+def test_tiled_coding_raises(coders):
     _, pcoder, model = coders
     batch = np.zeros((1, SIZE, SIZE, 3), np.float32)
     tiled = pcc.CodecCoder(pconfig.Config(**{**pcoder.cfg.__dict__,
@@ -260,11 +260,6 @@ def test_unported_entropy_models_and_tiling_raise(coders):
                            model, device="cpu")
     with pytest.raises(NotImplementedError, match="item 13"):
         tiled.compress_decompress(batch)
-    other = pcc.CodecCoder(pconfig.Config(**{**pcoder.cfg.__dict__,
-                                            "entropy_layer": "onlyEZWT"}),
-                           model, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        other._compress_entropy(0, *subbands(3))
 
 
 def test_cdf97_factorized_round_trip_matches_the_jax_package():

@@ -3,7 +3,11 @@ the 3x3 conv Function forward and backward in both operand types (fp32:
 conv3x3_halo; bf16: the tensor-core conv_v2), each conv kernel alone, and
 the CDF 9/7 ladder's analysis and synthesis kernels in all four uses, along
 one axis and over a whole level (adjoints, repeats, the launches of the
-multi-level transform and its backward). Imports no JAX, so it runs where only PyTorch is installed:
+multi-level transform and its backward); the tree-based entropy models
+(onlyEZWT, ZTBlock) in the flagship codec on the card against the CPU, with
+the kernels' launches counted per model and dtype, and their coding path's
+parameter passes on the card. Imports no JAX, so it runs where only
+PyTorch is installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -14,8 +18,16 @@ import numpy as np
 import pytest
 import torch
 
+from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch import (
+    config)
+from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.coding import (
+    codec_coder)
+from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.models import (
+    codec)
 from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.ops import (
     conv3x3_halo as conv, conv_v2, dwt97, lift97)
+from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.train import (
+    data, state)
 
 # max |kernel - plain| / max |plain|: fp32 sums of the same exact products
 # in another order
@@ -407,3 +419,80 @@ def test_ladder_on_the_card_never_takes_the_plain_path(card, monkeypatch):
     with pytest.raises(ValueError, match="contiguous"):
         lift97.launch_level_analysis(
             torch.zeros(1, 1, 8, 8, device=card).transpose(2, 3))
+
+
+TREE_LEVELS = 3
+TREE_RTOL = 1e-4      # eval RD terms, card vs CPU, fp32
+TREE_XHAT_TOL = 1e-5  # mean |xhat_card - xhat_cpu|
+
+
+def tree_launches(cfg):
+    """(Berk AE, plc) dense 3x3 convs of one flagship eval step: 8 a scaling
+    AE (one a level, one for LL) and, for onlyEZWT, 2 a finer level, on
+    each of the 3 planes."""
+    ae = 3 * 8 * (cfg.dwtlevels + 1)
+    plc = 3 * 2 * (cfg.dwtlevels - 1) if cfg.entropy_layer == "onlyEZWT" \
+        else 0
+    return ae, plc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("entropy_layer", [
+    "onlyEZWT", "DWTConditioned2EntropyLayerZTBlock"])
+def test_tree_entropy_models_on_the_card(card, entropy_layer, dtype):
+    """The flagship codec with onlyEZWT or ZTBlock, one 64x64 image: fp32
+    on the card against the CPU; the kernels' launches per model and dtype
+    (bf16: the AEs on conv_v2, onlyEZWT's fp32 plc on conv3x3_halo)."""
+    cfg = config.flagship_config(entropy_layer=entropy_layer, dtype=dtype,
+                                 dwtlevels=TREE_LEVELS)
+    img = data.synthetic_natural_images(1, 64, seed=0)[0]
+    x = torch.from_numpy(img).permute(2, 0, 1)[None].float() / 255.0
+    model = codec.CodecWrapper(cfg, generator=torch.Generator().manual_seed(0))
+    want, want_xhat = state.make_eval_step(cfg, model, "cpu")(x)
+    step = state.make_eval_step(cfg, model, card)
+    conv.launches = conv_v2.launches = 0
+    got, got_xhat = step(x)
+    torch.cuda.synchronize()
+    ae, plc = tree_launches(cfg)
+    if dtype == "float32":
+        assert (conv.launches, conv_v2.launches) == (ae + plc, 0)
+        for k in ("loss", "mse", "rate1", "rate2"):
+            a, b = float(getattr(got, k)), float(getattr(want, k))
+            assert abs(a - b) <= TREE_RTOL * abs(b), k
+        assert (got_xhat.cpu() - want_xhat).abs().mean().item() \
+            < TREE_XHAT_TOL
+    else:
+        assert (conv.launches, conv_v2.launches) == (plc, ae)
+        assert all(np.isfinite(float(v)) for v in got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entropy_layer", [
+    "onlyEZWT", "DWTConditioned2EntropyLayerZTBlock"])
+def test_tree_coding_parameter_passes_run_on_the_card(card, entropy_layer):
+    """The decoder's (CDF indexes, mu) pass on the card against the CPU's,
+    then one image's round trip on the card (lossless, or it raises)."""
+    cfg = config.flagship_config(entropy_layer=entropy_layer,
+                                 dwtlevels=TREE_LEVELS)
+    model = codec.CodecWrapper(cfg, generator=torch.Generator().manual_seed(1))
+    cpu = codec_coder.CodecCoder(cfg, model, "cpu")
+    rng = np.random.RandomState(0)
+    parent = np.round(rng.randn(1, 16, 16, 3) * 3).astype(np.float32)
+    if entropy_layer == "onlyEZWT":
+        args = ("level_params_from_parent", 1, parent)
+    else:
+        args = ("level_coset_params", 0, 2, parent, parent * 0.5, parent)
+    want_idx, want_mu = cpu._dec_params(0, *args)
+    gpu = codec_coder.CodecCoder(cfg, model, card)
+    assert next(gpu.model.parameters()).is_cuda
+    conv.launches = 0
+    idx, mu = gpu._dec_params(0, *args)
+    torch.cuda.synchronize()
+    assert conv.launches == (2 if entropy_layer == "onlyEZWT" else 0)
+    assert idx.dtype == np.int32 and idx.shape == want_idx.shape
+    assert np.mean(idx == want_idx) >= 0.999
+    assert np.abs(mu - want_mu).max() <= 1e-4 * np.abs(want_mu).max()
+    img = data.synthetic_natural_images(1, 64, seed=2)[0]
+    res = gpu.compress_decompress(img[None].astype(np.float32) / 255.0)
+    assert np.isfinite(res.bpp) and res.bpp > 0 and np.isfinite(res.psnr)
