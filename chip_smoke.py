@@ -152,12 +152,49 @@ port's seeded init (no trained weights of these models exist). For each:
            changed (one epoch of 2 steps of 2 x 64x64), resumed, then
            ``mode: test``.
 
+Then the quincunx integer-lifting codec (``scripts/rd_sweep.py``'s preset:
+'hv' split, ``lif_prec_bits`` 8, 3 levels, joint RGB, pointwise AEs,
+factorized; 320,994 parameters) with its trained snapshots, fp32, every P/U
+net's 3x3 conv on kernel 1:
+
+26. quincunx_kernel  kernel 1 (launched directly) at every quincunx shape:
+           forward at the B=8 512x768 eval step's 12, forward, dx and dk at
+           the B=8 256x256 train step's 12 (``quincunx_kernel_bwd``), each
+           against its plain version, with its time, cuDNN fp32's and the
+           bound;
+27. quincunx_parity  the lambda=400 snapshot card vs CPU: the eval step on
+           one 256x256 image (rates 1e-4, distortion and xhat's mean |d|
+           at ``QUINCUNX_DIST_RTOL`` / ``QUINCUNX_XHAT_MEAN_TOL``, rounded
+           subbands equal in 99.9 %), one train step (noise from one CPU
+           generator; gradients 1e-2 a tensor, 1e-3 on the L2), launches;
+28. quincunx_main  the eval step at B=8 512x768 (ms, MP/s, 144 kernel-1
+           launches a step) and the train step at B=8 256x256 (2 warm-up,
+           ``QUINCUNX_TRAIN_STEPS`` timed, 287 launches a step of which 143
+           dx, peak memory), one step of each profiled;
+29. quincunx_bitstream  both snapshots over the 19 dead-leaves images of
+           the held-out set, one at a time: lossless, each image within
+           0.5 % bpp / 0.02 dB of the JAX package's CPU coding
+           (``results/port_quincunx_targets.json``), the means beside
+           ``results/rd_quincunx.json``'s, s/image split into card and
+           host; the snapshot's lifting nets alone on grid-valued images
+           (the same bits twice, the share back on the grid) and one
+           stream decoded twice to the same bits;
+30. quincunx_agent  the CLI on a temporary JSON of the preset (batch 2,
+           patch 64, 2 epochs of 2 steps), resumed, then ``mode: test``;
+31. alt_{basic,attention,attention_post}  BasicWavelet, AttentionWavelet
+           and AttentionWaveletPostProcessing (factorized, joint RGB, 4
+           levels, seeded weights): card vs CPU (eval and one train step),
+           the B=8 512x768 eval step timed with the ladder kernels'
+           launches gated (4 + 4 a step for the attention transforms), and
+           a bitstream of two 256x256 images.
+
 Then a ``kernels`` line, the card's name and power limit again, and the
-last line ``{"ok": true, "device": {...}}``.
+last line ``{"ok": true, "device": {...}}``. Every other line carries
+``elapsed_s``, the seconds since the script started.
 
 TF32 is off (cuDNN and matmul) for every fp32 comparison and fp32 run:
 phases 3 to 7, the fp32 steps of phase 8, phases 11 and 12, 14, 15, 18,
-20, the fp32 steps of 21, 23 to 25.
+20, the fp32 steps of 21, 23 to 31.
 """
 
 from __future__ import annotations
@@ -211,6 +248,23 @@ TREE_FIT_BATCH = (8, 128)        # transform's subbands of 8 seeded patches
 TREE_CPU_IMAGES = 2              # bitstream images also coded on the CPU
 TREE_AGENT = dict(AGENT, steps_per_epoch=2, max_epoch=1, patch_size=64)
 CODING_MANY = 8                  # images of phase coding_many (256x256)
+# the quincunx integer-lifting codec: scripts/rd_sweep.py's preset (its
+# nets take no compute dtype), with its two trained snapshots
+QUINCUNX = dict(netType="QuincunxLifting", entropy_layer="factorized",
+                autoencoder="SubbandAutoEncoder", clrch=3, dwtlevels=3,
+                split_mode="hv", lif_prec_bits=8, num_lifting_perlayer=2,
+                dtype="float32")
+QUINCUNX_SNAPSHOTS = {"quincunx_lam400": 400.0, "quincunx_lam1600": 1600.0}
+QUINCUNX_TARGETS = os.path.join(HERE, "results", "port_quincunx_targets.json")
+RD_QUINCUNX = os.path.join(HERE, "results", "rd_quincunx.json")
+QUINCUNX_TRAIN_STEPS = 5         # timed fp32 train steps, B=8 256x256
+QUINCUNX_AGENT = dict(batch_size=2, patch_size=64, steps_per_epoch=2,
+                      max_epoch=2, multi_agent=False)
+# the other transforms: (phase suffix, netType), seeded weights
+ALT_TRANSFORMS = (("basic", "BasicWavelet"), ("attention", "AttentionWavelet"),
+                  ("attention_post", "AttentionWaveletPostProcessing"))
+ALT_SEED = 0
+ALT_BITSTREAM_IMAGES = 2         # 256x256
 DEV = "cuda"
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, fp32 CUDA
 # cores, HBM3.
@@ -271,10 +325,34 @@ BITSTREAM_BF16_PSNR_TOL = 0.2  # dB
 # overhead and the escape coding past the tables' range)
 CDF97_REAL_BPP_RTOL = 3e-2
 TREE_REAL_BPP_RTOL = 3e-2        # the same gate for onlyEZWT and ZTBlock
+# Integer lifting rounds every lifted value to a 1/255 grid: where the card's
+# fp32 conv sums put a value within an ulp of a grid boundary from the CPU's,
+# one rounding flips and moves the pixels it reaches by a grid step. So card
+# against CPU is gated on means and shares, never on a maximum.
+# On one 256x256 image of the lambda=400 snapshot the JAX package and the
+# port, both on the CPU, differ so by 4.0e-4 in the mse (0.0017 dB) and by
+# 8.3e-5 in mean |xhat| (images of seeds 0-2); the rates by 1.1e-5. The
+# distortion terms (loss, mse) and xhat are held to five times that, the
+# rates to PARITY_RTOL.
+QUINCUNX_DIST_RTOL = 2e-3
+QUINCUNX_XHAT_MEAN_TOL = 5e-4    # mean |xhat_card - xhat_cpu|
+SUBBAND_EQUAL_SHARE = 0.999      # rounded subband values equal, card vs CPU
+# The lifting nets alone on a grid-valued image (k/255): in fp32 the
+# inverse's add undoes the forward's only to an ulp, and where a P/U output
+# then sits on a rounding boundary a grid step flips and travels on. The
+# JAX package's own CPU round trip of the two images returns 98.98 % of the
+# pixels to 1e-6 (at most 3 grid steps off); the port's is held to 98 %,
+# and to give the same bits twice.
+GRID_EXACT_SHARE = 0.98
+
+
+T_START = time.perf_counter()
 
 
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    """One JSON line, with the seconds since the script started."""
+    print(json.dumps({**obj, "elapsed_s": time.perf_counter() - T_START}),
+          flush=True)
 
 
 def card_line() -> str:
@@ -497,12 +575,15 @@ def host_us(torch, fn, reps=200):
     return (t1 - t0) / reps * 1e6
 
 
-def phase_kernel(torch, F, conv, cfg):
-    """Kernel 1 (launched directly) vs plain at every eval-path shape;
+def phase_kernel(torch, F, conv, cfg, shapes=None, name="kernel"):
+    """Kernel 1 (launched directly) vs plain at every eval-path shape (the
+    flagship's, or ``shapes``: {(h, w, cin, cout): launches a step});
     returns per-shape rows."""
     rows = []
     gen = torch.Generator(device=DEV).manual_seed(0)
-    for (h, w, cin, cout), per_step in sorted(conv_shapes(cfg).items()):
+    phase = name
+    for (h, w, cin, cout), per_step in sorted(
+            (shapes or conv_shapes(cfg)).items()):
         x = torch.randn(B, cin, h, w, device=DEV, generator=gen
                         ).contiguous(memory_format=torch.channels_last)
         wt = torch.randn(cout, cin, 3, 3, device=DEV, generator=gen
@@ -530,7 +611,7 @@ def phase_kernel(torch, F, conv, cfg):
             del xl, w9, wl
         flops = 2.0 * 9 * cin * cout * B * h * w
         bound, t_ops, t_bytes = conv_bound(B * h * w, cin, cout, name)
-        row = {"phase": "kernel", "dtype": name, "x": [B, cin, h, w],
+        row = {"phase": phase, "dtype": name, "x": [B, cin, h, w],
                "cout": cout, "launches_per_step": per_step,
                "max_abs_err": abs_err, "max_rel_err": rel_err,
                "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
@@ -545,14 +626,18 @@ def phase_kernel(torch, F, conv, cfg):
     return rows
 
 
-def phase_kernel_bwd(torch, conv, cfg):
+def phase_kernel_bwd(torch, conv, cfg, shapes=None, name="kernel_bwd",
+                     no_dx=()):
     """Kernel 1's forward and dx (launched directly) and the dk product
-    against the plain versions at every training shape; returns per-shape
-    rows."""
+    against the plain versions at every training shape (the flagship's, or
+    ``shapes``); returns per-shape rows. ``no_dx``: shapes whose first
+    layer of a step sees the image, which needs no dx (one launch fewer a
+    step)."""
     rows = []
     gen = torch.Generator(device=DEV).manual_seed(1)
     b = TRAIN_B
-    shapes = conv_shapes(cfg, (TRAIN_P, TRAIN_P))
+    shapes = shapes or conv_shapes(cfg, (TRAIN_P, TRAIN_P))
+    phase = name
     for (h, w, cin, cout), per_step in sorted(shapes.items()):
         x = torch.randn(b, cin, h, w, device=DEV, generator=gen)
         wt = torch.randn(cout, cin, 3, 3, device=DEV, generator=gen
@@ -606,8 +691,10 @@ def phase_kernel_bwd(torch, conv, cfg):
         dk_bytes = (n * cin + n * cout) * dsize + 9 * cin * cout * 4
         t_dx_bytes = dx_bytes / PEAK_BYTES * 1e3
         t_dk_bytes = dk_bytes / PEAK_BYTES * 1e3
-        row = {"phase": "kernel_bwd", "dtype": name, "x": [b, cin, h, w],
+        row = {"phase": phase, "dtype": name, "x": [b, cin, h, w],
                "cout": cout, "launches_per_step": per_step,
+               "dx_launches_per_step": per_step
+               - ((h, w, cin, cout) in no_dx),
                "fwd_max_abs_err": fwd_abs, "fwd_max_rel_err": fwd_rel,
                "dx_max_abs_err": dx_abs, "dx_max_rel_err": dx_rel,
                "dk_max_rel_err": dk_rel,
@@ -894,9 +981,7 @@ def phase_main(torch, np, pkg, counts):
     are: every dense 3x3 conv through conv3x3_halo, none through conv_v2;
     one more fp32 step profiled."""
     cfg = pkg.config.flagship_config(dtype="bfloat16")
-    imgs = pkg.data.synthetic_natural_images(B, W, seed=0)
-    batch = torch.from_numpy(np.stack(imgs)[:, :H]).permute(0, 3, 1, 2)
-    batch = batch.float().div(255.0).to(DEV)
+    batch = eval_batch(torch, np, pkg)
     model = load_model(cfg, pkg)
     step = pkg.state.make_eval_step(cfg, model, DEV)
     expected = sum(conv_shapes(cfg).values())
@@ -1484,9 +1569,7 @@ def phase_tree_main(torch, np, pkg, counts, key, el):
     """The eval step at B=8 512x768 in fp32 (TF32 off) and in bf16: ms a
     step, MP/s, the kernels' launches against the reckoning, the entropy
     models' own time on the step's subbands, and one step profiled."""
-    imgs = pkg.data.synthetic_natural_images(B, W, seed=0)
-    batch = torch.from_numpy(np.stack(imgs)[:, :H]).permute(0, 3, 1, 2)
-    batch = batch.float().div(255.0).to(DEV)
+    batch = eval_batch(torch, np, pkg)
     res = {"phase": f"{key}_main", "entropy_layer": el, "batch": [B, 3, H, W],
            "steps": STEPS}
     for dtype in ("float32", "bfloat16"):
@@ -2220,9 +2303,7 @@ def phase_cdf97_parity(torch, np, pkg, counts):
 def phase_cdf97_main(torch, np, pkg, counts):
     """The fp32 CDF97 eval step at B=8 512x768, seeded random weights."""
     cfg = cdf97_config(pkg)
-    imgs = pkg.data.synthetic_natural_images(B, W, seed=0)
-    batch = torch.from_numpy(np.stack(imgs)[:, :H]).permute(0, 3, 1, 2)
-    batch = batch.float().div(255.0).to(DEV)
+    batch = eval_batch(torch, np, pkg)
     step = pkg.state.make_eval_step(cfg, cdf97_model(torch, pkg, cfg), DEV)
     lift_n, ilift_n = ladder_launches(cfg, False)
 
@@ -2359,14 +2440,517 @@ def phase_cdf97_bitstream(torch, np, pkg, counts):
     return res
 
 
+# --- quincunx integer lifting and the other transforms -----------------------
+
+def quincunx_config(pkg, lam=400.0, **kw):
+    return pkg.config.Config(**dict(QUINCUNX, lambda_=lam, **kw)).validate()
+
+
+def quincunx_model(pkg, cfg, name="quincunx_lam400"):
+    """The quincunx codec with a committed snapshot's weights."""
+    model = pkg.codec.CodecWrapper(cfg)
+    pkg.weights.load_flax_params(model, pkg.weights.load_npz(os.path.join(
+        HERE, "results", "ckpt_snapshots", f"{name}.npz")))
+    return model
+
+
+def quincunx_conv_shapes(cfg, size=None):
+    """Distinct (h, w, cin, cout) of the quincunx P/U nets' 3x3 convs on
+    H x W images, each with its launches a step: per level a horizontal
+    lifting net on the (H, W/2) halves and two vertical ones on the
+    (H/2, W/2) quarters, each with ``2 * num_lifting_perlayer`` P/U nets of
+    two convs (C -> hidden, hidden -> C), in the analysis and again in the
+    synthesis."""
+    if cfg.split_mode != "hv":
+        raise ValueError("the reckoning knows the 'hv' split only")
+    height, width = size or (H, W)
+    c = cfg.clrch
+    hid = min(c * 32, max(128, c))
+    per_net = 2 * cfg.num_lifting_perlayer
+    counts = {}
+    for lvl in range(cfg.dwtlevels):
+        h, w = height >> lvl, width >> lvl
+        for hh, ww, nets in ((h, w // 2, 1), (h // 2, w // 2, 2)):
+            for pair in ((c, hid), (hid, c)):
+                key = (hh, ww, *pair)
+                counts[key] = counts.get(key, 0) + 2 * per_net * nets
+    return counts
+
+
+def quincunx_first_layer(cfg, size):
+    """The shape of the one conv of a train step whose input is the image
+    (the level-0 horizontal prediction's first layer): it takes no dx."""
+    h, w = size
+    return (h, w // 2, cfg.clrch, min(cfg.clrch * 32, max(128, cfg.clrch)))
+
+
+def reckon_quincunx(cfg, train=False, size=None):
+    """Kernel 1's launches of one quincunx step or image: every P/U conv
+    forward; in training a dx for each but the first layer, which sees the
+    image."""
+    n = sum(quincunx_conv_shapes(cfg, size).values())
+    if train:
+        return launches_of(conv=2 * n - 1, conv_dx=n - 1)
+    return launches_of(conv=n)
+
+
+def reckon_quincunx_agent(cfg, n_valid):
+    t, e = reckon_quincunx(cfg, True), reckon_quincunx(cfg)
+    steps, epochs = cfg.steps_per_epoch, cfg.max_epoch
+    return launches_of(conv=epochs * (steps * t["conv3x3_halo"]
+                                      + n_valid * e["conv3x3_halo"]),
+                       conv_dx=epochs * steps * t["conv3x3_halo_dx"])
+
+
+def eval_batch(torch, np, pkg):
+    """B=8 seeded 512x768 images on the card (phase main's batch)."""
+    imgs = pkg.data.synthetic_natural_images(B, W, seed=0)
+    batch = torch.from_numpy(np.stack(imgs)[:, :H]).permute(0, 3, 1, 2)
+    return batch.float().div(255.0).to(DEV)
+
+
+def rel_gap(a, b) -> float:
+    """|a - b| / |b|; a term that is 0 on both sides (the factorized
+    model's rate1) agrees."""
+    return 0.0 if a == b else abs(a - b) / abs(b) if b else float("inf")
+
+
+def card_vs_cpu_eval(torch, pkg, cfg, cpu_model, counts, name):
+    """The eval step on one 256x256 image on the card and on the CPU: the RD
+    terms, xhat, the subbands' rounded values (the symbols up to the
+    bottlenecks' medians), launches on the card."""
+    img = pkg.data.synthetic_natural_images(1, 256, seed=0)[0]
+    x = torch.from_numpy(img).permute(2, 0, 1)[None].float() / 255.0
+    gpu_model = copy.deepcopy(cpu_model)
+    want, want_xhat = pkg.state.make_eval_step(cfg, cpu_model, "cpu")(x)
+    step = pkg.state.make_eval_step(cfg, gpu_model, DEV)
+    counts.reset()
+    got, got_xhat = step(x)
+    torch.cuda.synchronize()
+    launches = counts.read()
+    with torch.inference_mode():
+        subs = [m.codec.transform.encode(d(x) - 0.5) for m, d in (
+            (cpu_model, lambda t: t), (gpu_model, lambda t: t.to(DEV)))]
+    flat = [torch.cat([s[0].flatten().cpu()] + [t.flatten().cpu()
+                                                for t in s[1]])
+            for s in subs]
+    d = (got_xhat.cpu() - want_xhat).abs()
+    res = {"phase": name, "image": [1, 3, 256, 256], "dtype": "float32",
+           "launches": launches, "xhat_max_abs_err": d.max().item(),
+           "xhat_mean_abs_err": d.mean().item(),
+           "subband_equal_share": (flat[0] == flat[1]).double().mean().item(),
+           "subband_rounded_equal_share":
+           (flat[0].round() == flat[1].round()).double().mean().item()}
+    for k in ("loss", "mse", "rate1", "rate2"):
+        a, b = float(getattr(got, k)), float(getattr(want, k))
+        res[k] = {"card": a, "cpu": b, "rel_err": rel_gap(a, b)}
+    del gpu_model, step
+    return res
+
+
+def card_vs_cpu_train(torch, np, pkg, cfg, make_model, counts):
+    """One fp32 train step on the card and on the CPU from the same weights
+    and batch, the noise (bottlenecks' and integer lifting's) drawn from
+    one CPU generator with one seed on both: RD terms, every gradient
+    tensor (max |d| / max |g| a tensor, the worst, and the L2 of all
+    differences together), launches."""
+    batch = train_batch(torch, np, pkg, PARITY_B, PARITY_P, seed=2)
+    results = {}
+    for dev in ("cpu", DEV):
+        model = make_model()
+        tstep = pkg.state.make_train_step(
+            cfg, model, pkg.state.make_optimizer(cfg, model), dev)
+        counts.reset()
+        out, _ = tstep(batch, torch.Generator().manual_seed(3), TRAIN_LR, 1.0)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        results[dev] = (out, counts.read(),
+                        {n: p.grad.detach().cpu()
+                         for n, p in model.named_parameters()})
+        del model, tstep
+    (want, cpu_counts, want_g), (got, launches, got_g) = (results["cpu"],
+                                                          results[DEV])
+    tr = {"batch": [PARITY_B, 3, PARITY_P, PARITY_P], "launches": launches,
+          "cpu_launches": cpu_counts}
+    for k in ("loss", "mse", "rate1", "rate2"):
+        a, b = float(getattr(got, k)), float(getattr(want, k))
+        tr[k] = {"card": a, "cpu": b, "rel_err": rel_gap(a, b)}
+    errs = {n: rel_err(got_g[n], want_g[n]) for n in want_g
+            if want_g[n].abs().max() > 0}
+    worst = max(errs, key=errs.get)
+    l2 = (sum(float((got_g[n] - want_g[n]).double().pow(2).sum())
+              for n in want_g)
+          / sum(float(want_g[n].double().pow(2).sum()) for n in want_g)) ** 0.5
+    tr.update(grad_tensors=len(errs), grad_worst=worst,
+              grad_worst_rel_err=errs[worst],
+              grad_tensors_over_1e_3=sum(e > 1e-3 for e in errs.values()),
+              grad_l2_rel_err=l2)
+    return tr
+
+
+def parity_faults(res, xhat_mean_tol, dist_rtol=PARITY_RTOL):
+    """The gates a card-vs-CPU result misses: the eval step's rates within
+    PARITY_RTOL, its loss and mse within ``dist_rtol``, xhat's mean |d|;
+    the train step's RD terms and gradients as the flagship's."""
+    bad = [k for k in ("rate1", "rate2")
+           if not res[k]["rel_err"] <= PARITY_RTOL]
+    bad += [k for k in ("loss", "mse") if not res[k]["rel_err"] <= dist_rtol]
+    if not res["xhat_mean_abs_err"] <= xhat_mean_tol:
+        bad.append("xhat")
+    tr = res["train"]
+    bad += [f"train {k}" for k in ("loss", "mse", "rate1", "rate2")
+            if not tr[k]["rel_err"] <= PARITY_RTOL]
+    if not tr["grad_worst_rel_err"] <= GRAD_TOL \
+            or not tr["grad_l2_rel_err"] <= GRAD_L2_TOL:
+        bad.append(f"gradient {tr['grad_worst']}")
+    return bad
+
+
+def phase_quincunx_parity(torch, np, pkg, counts):
+    """The quincunx codec in fp32 with the lambda=400 snapshot, card vs CPU:
+    the eval step on one 256x256 image (rates, the distortion terms and
+    xhat's mean |d| at QUINCUNX_DIST_RTOL / QUINCUNX_XHAT_MEAN_TOL, the
+    share of equal rounded subband elements: a value within an ulp of a
+    1/255 grid boundary may round the other way, so no maximum is gated),
+    then one train step, its noise from one CPU generator on both
+    (gradients 1e-2 a tensor, 1e-3 on the L2, as the flagship's; training
+    adds noise, so nothing rounds there)."""
+    cfg = quincunx_config(pkg)
+    res = card_vs_cpu_eval(torch, pkg, cfg, quincunx_model(pkg, cfg), counts,
+                           "quincunx_parity")
+    res["train"] = card_vs_cpu_train(torch, np, pkg, cfg,
+                                     lambda: quincunx_model(pkg, cfg), counts)
+    emit(res)
+    bad = parity_faults(res, QUINCUNX_XHAT_MEAN_TOL, QUINCUNX_DIST_RTOL)
+    if not res["subband_rounded_equal_share"] >= SUBBAND_EQUAL_SHARE:
+        bad.append("subbands")
+    if bad:
+        raise AssertionError(f"quincunx card and CPU disagree: {bad}")
+    expect_launches((res["launches"], res["train"]["cpu_launches"],
+                     res["train"]["launches"]),
+                    (reckon_quincunx(cfg), launches_of(),
+                     reckon_quincunx(cfg, True)),
+                    "quincunx parity (eval card, train cpu, train card)")
+    return res
+
+
+def phase_quincunx_kernel(torch, F, conv, pkg):
+    """Kernel 1 at every quincunx shape: forward at the B=8 512x768 eval
+    step's, forward, dx and dk at the B=8 256x256 train step's (launched
+    directly, fp32), each against its plain version, with its time, cuDNN
+    fp32's (TF32 off) and the bound."""
+    cfg = quincunx_config(pkg)
+    rows = phase_kernel(torch, F, conv, cfg, quincunx_conv_shapes(cfg),
+                        "quincunx_kernel")
+    size = (TRAIN_P, TRAIN_P)
+    bwd = phase_kernel_bwd(torch, conv, cfg, quincunx_conv_shapes(cfg, size),
+                           "quincunx_kernel_bwd",
+                           no_dx=(quincunx_first_layer(cfg, size),))
+    return rows, bwd
+
+
+def timed_steps(torch, run, steps):
+    """``steps`` calls of ``run`` each ended by a synchronize: host ms."""
+    ms = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms
+
+
+def phase_quincunx_main(torch, np, pkg, counts):
+    """The quincunx codec (lambda=400 snapshot, fp32, TF32 off): the eval
+    step at B=8 512x768 (ms, MP/s, bpp, PSNR, kernel 1's launches against
+    the reckoning, one step profiled), then the train step at B=8 256x256,
+    Adam at lr 1e-4 (2 warm-up and ``QUINCUNX_TRAIN_STEPS`` timed, launches,
+    peak memory, one step profiled)."""
+    cfg = quincunx_config(pkg, learning_rate=TRAIN_LR)
+    batch = eval_batch(torch, np, pkg)
+    step = pkg.state.make_eval_step(cfg, quincunx_model(pkg, cfg), DEV)
+    t0 = time.perf_counter()
+    step(batch)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    outs = []
+    counts.reset()
+    ms = timed_steps(torch, lambda: outs.append(step(batch)), STEPS)
+    launches = counts.read()
+    expect_launches(launches, {k: STEPS * v for k, v in
+                               reckon_quincunx(cfg).items()},
+                    f"{STEPS} quincunx eval steps")
+    out, xhat = outs[-1]
+    bpp, psnr = float(out.rate1 + out.rate2), float(
+        pkg.loss.psnr(batch - 0.5, xhat))
+    if not all(math.isfinite(v) for v in (bpp, psnr, float(out.loss))) \
+            or tuple(xhat.shape) != (B, 3, H, W):
+        raise AssertionError(f"quincunx eval: bpp {bpp} psnr {psnr}")
+    mean_ms = sum(ms) / len(ms)
+    res = {"phase": "quincunx_main", "config": "quincunx_lam400",
+           "dtype": "float32", "batch": [B, 3, H, W], "steps": STEPS,
+           "bpp": bpp, "psnr_db": psnr, "loss": float(out.loss),
+           "ms_per_step": mean_ms, "ms_per_step_min": min(ms),
+           "ms_per_step_all": ms, "mp_per_s": B * H * W / 1e3 / mean_ms,
+           "warmup_s": warm_s,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": launches, "reckoned_per_step": reckon_quincunx(cfg)}
+    del outs, out, xhat
+    phase_profile(torch, lambda: step(batch), mean_ms, "quincunx_profile")
+    del step, batch
+    torch.cuda.empty_cache()
+
+    tbatch = train_batch(torch, np, pkg, TRAIN_B, TRAIN_P, seed=1).to(DEV)
+    model = quincunx_model(pkg, cfg)
+    tstep = pkg.state.make_train_step(
+        cfg, model, pkg.state.make_optimizer(cfg, model), DEV)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    touts = []
+
+    def run_step():
+        touts.append(tstep(tbatch, gen, TRAIN_LR, 1.0)[0])
+
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_WARMUP):
+        run_step()
+    torch.cuda.synchronize()
+    twarm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    counts.reset()
+    tms = timed_steps(torch, run_step, QUINCUNX_TRAIN_STEPS)
+    tlaunches = counts.read()
+    reck = reckon_quincunx(cfg, True, (TRAIN_P, TRAIN_P))
+    expect_launches(tlaunches, {k: QUINCUNX_TRAIN_STEPS * v
+                                for k, v in reck.items()},
+                    f"{QUINCUNX_TRAIN_STEPS} quincunx train steps")
+    losses = [float(o.loss) for o in touts]
+    if not all(math.isfinite(v) for v in losses) or not all(
+            torch.isfinite(p).all() for p in model.parameters()):
+        raise AssertionError(f"quincunx train: loss {losses}")
+    tmean = sum(tms) / len(tms)
+    res["train"] = {"batch": [TRAIN_B, 3, TRAIN_P, TRAIN_P], "lr": TRAIN_LR,
+                    "warmup_steps": TRAIN_WARMUP,
+                    "steps": QUINCUNX_TRAIN_STEPS, "ms_per_step": tmean,
+                    "ms_per_step_min": min(tms), "ms_per_step_all": tms,
+                    "mp_per_s": TRAIN_B * TRAIN_P * TRAIN_P / 1e3 / tmean,
+                    "loss": losses, "warmup_s": twarm_s,
+                    "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "launches": tlaunches, "reckoned_per_step": reck}
+    emit(res)
+    phase_profile(torch, run_step, tmean, "quincunx_train_profile")
+    del tstep, model, touts
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_quincunx_bitstream(torch, np, pkg, counts):
+    """The real bitstream in fp32 of both quincunx snapshots over the 19
+    dead-leaves images of the held-out set, one at a time: every plane
+    decodes bit for bit (the coder raises otherwise), each image's bpp and
+    PSNR within 0.5 % and 0.02 dB of the JAX package's CPU coding
+    (``results/port_quincunx_targets.json``), the means beside
+    ``results/rd_quincunx.json``'s rows of those images, s/image split into
+    card and host. Then integer lifting on the card: the lambda=400
+    snapshot's lifting nets alone map grid-valued images to subbands and
+    back (the share of pixels back on their grid value), the subbands and
+    the synthesis give the same bits twice, and one stream decodes to the
+    same bits twice."""
+    n, size, seed = BITSTREAM_IMAGES
+    images = pkg.data.synthetic_natural_images(n, size, seed=seed)
+    with open(QUINCUNX_TARGETS) as fh:
+        targets = json.load(fh)["points"]
+    with open(RD_QUINCUNX) as fh:
+        rd = json.load(fh)
+    names = sorted(rd["eval_set"])
+    res = {"phase": "quincunx_bitstream", "dtype": "float32",
+           "images": [n, 3, size, size], "points": {}}
+    bad = []
+    for name, lam in QUINCUNX_SNAPSHOTS.items():
+        cfg = quincunx_config(pkg, lam)
+        coder = pkg.codec_coder.CodecCoder(cfg, quincunx_model(pkg, cfg, name),
+                                           DEV)
+        rows = code_images(torch, pkg, counts, coder, images,
+                           reckon_quincunx(cfg), f"quincunx_bitstream {name}")
+        want = targets[name]["per_image"]
+        rd_rows = [r for nm, r in zip(names,
+                                      rd["points"][str(int(lam))]["per_image"])
+                   if nm.startswith(f"natural_{seed}_")]
+        for r, t in zip(rows, want):
+            r["target_bpp"], r["target_psnr"] = t["bpp"], t["psnr"]
+            if not abs(r["bpp"] - t["bpp"]) <= TARGET_BPP_RTOL * t["bpp"] \
+                    or not abs(r["psnr"] - t["psnr"]) <= TARGET_PSNR_TOL:
+                bad.append((name, r["image"]))
+        res["points"][name] = {
+            "mean_bpp": mean(rows, "bpp"), "mean_psnr_db": mean(rows, "psnr"),
+            "target_mean_bpp": mean(want, "bpp"),
+            "target_mean_psnr_db": mean(want, "psnr"),
+            "max_bpp_rel_gap": max(abs(r["bpp"] - r["target_bpp"])
+                                   / r["target_bpp"] for r in rows),
+            "max_psnr_gap_db": max(abs(r["psnr"] - r["target_psnr"])
+                                   for r in rows),
+            "rd_quincunx_rows_mean_bpp": mean(rd_rows, "bpp"),
+            "rd_quincunx_rows_mean_psnr_db": mean(rd_rows, "psnr"),
+            "launches_per_image": reckon_quincunx(cfg),
+            "first_image_s": rows[0]["wall_s"],
+            **{f"mean_{k}": mean(rows, k, skip=1) for k in (
+                "wall_s", "encode_s", "decode_s", "analysis_card_ms",
+                "synthesis_card_ms", "encode_host_ms", "decode_host_ms",
+                "coded_mp_per_s")},
+            "per_image": [{k: r[k] for k in ("bpp", "target_bpp", "psnr",
+                                             "target_psnr", "wall_s")}
+                          for r in rows]}
+
+    # integer lifting on the card, the lambda=400 snapshot's nets alone
+    cfg = quincunx_config(pkg, autoencoder="none")
+    tr = pkg.codec.CodecWrapper(cfg).codec.transform
+    snap = pkg.weights.state_dict_from_flax(pkg.weights.load_npz(os.path.join(
+        HERE, "results", "ckpt_snapshots", "quincunx_lam400.npz")))
+    tr.load_state_dict({k[len("codec.transform."):]: v for k, v in snap.items()
+                        if k.startswith("codec.transform.layers_")})
+    tr.to(DEV)
+    grid = torch.from_numpy(np.stack(images[:2])).permute(0, 3, 1, 2)
+    grid = (grid.float() / 255.0).to(DEV)
+    with torch.inference_mode():
+        a = tr.encode(grid)
+        b = tr.encode(grid)
+        back = tr.decode(*a)
+        same = all(torch.equal(u, v) for u, v in zip([a[0]] + a[1],
+                                                     [b[0]] + b[1])) \
+            and torch.equal(back, tr.decode(*b))
+    d = (back - grid).abs()
+    exact = (d <= 1e-6).double().mean().item()
+    err = d.max().item()
+    # one stream of the last snapshot's coder, decoded twice
+    plane = torch.from_numpy(images[0]).permute(2, 0, 1)[None].float()
+    streams, _, xe_hat, xo_hats = coder.compress_plane(
+        0, (plane / 255.0 - 0.5).to(DEV))
+    shapes = (xe_hat.shape, [t.shape for t in xo_hats])
+    twice = np.array_equal(coder.decompress_plane(0, streams, *shapes),
+                           coder.decompress_plane(0, streams, *shapes))
+    res["integer_lifting"] = {"images": 2, "same_bits_twice": same,
+                              "round_trip_exact_share": exact,
+                              "round_trip_max_abs_err": err,
+                              "stream_decodes_twice_equal": twice}
+    emit(res)
+    if bad:
+        raise AssertionError(f"quincunx_bitstream: images {bad} off the JAX "
+                             f"targets (bpp {TARGET_BPP_RTOL}, psnr "
+                             f"{TARGET_PSNR_TOL} dB)")
+    if not (same and exact >= GRID_EXACT_SHARE and twice):
+        raise AssertionError(f"quincunx integer lifting on the card: "
+                             f"{res['integer_lifting']}")
+    return res
+
+
+def phase_quincunx_agent(torch, pkg, counts):
+    """The CLI on a temporary JSON of the quincunx preset (batch 2, patch
+    64, 2 epochs of 2 steps), then ``--resume-training``, then ``mode:
+    test``."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "quincunx.json")
+        with open(path, "w") as fh:
+            json.dump(dict(QUINCUNX, exp_name="quincunx", lambda_=400.0),
+                      fh)
+        return phase_agent(torch, pkg, counts, path, QUINCUNX_AGENT,
+                           reckon_quincunx_agent, reckon_coding,
+                           "quincunx_agent")
+
+
+def alt_config(pkg, net):
+    return pkg.config.Config(netType=net, entropy_layer="factorized",
+                             autoencoder="SubbandAutoEncoder", clrch=3,
+                             dwtlevels=4, linearity_flag=1, lambda_=400.0,
+                             learning_rate=TRAIN_LR).validate()
+
+
+def reckon_alt(cfg, train=False):
+    """The ladder's launches of one step or image of BasicWavelet (none) or
+    an attention transform (one level kernel a 2-D level each way; the
+    train step's backward adds the adjoint of the synthesis)."""
+    if cfg.netType == "BasicWavelet":
+        return launches_of()
+    lift_n, ilift_n = ladder_launches(cfg, train)
+    return launches_of(lift=lift_n, ilift=ilift_n)
+
+
+def phase_alt_transforms(torch, np, pkg, counts):
+    """BasicWavelet (``linearity_flag`` 1), AttentionWavelet and
+    AttentionWaveletPostProcessing with the factorized model, joint RGB, 4
+    levels, seeded weights, fp32 (TF32 off): card vs CPU on one 256x256
+    image and one train step (as the quincunx parity), the B=8 512x768 eval
+    step timed with the ladder kernels' launches gated, one train step on
+    the card, and the real bitstream of two 256x256 images (lossless, the
+    coder raises otherwise)."""
+    out = {}
+    batch = eval_batch(torch, np, pkg)
+    images = pkg.data.synthetic_natural_images(ALT_BITSTREAM_IMAGES, 256,
+                                               seed=5)
+    for key, net in ALT_TRANSFORMS:
+        cfg = alt_config(pkg, net)
+
+        def make():
+            return pkg.codec.CodecWrapper(
+                cfg, generator=torch.Generator().manual_seed(ALT_SEED))
+
+        with tf32_off(torch, deterministic=True):
+            res = card_vs_cpu_eval(torch, pkg, cfg, make(), counts,
+                                   f"alt_{key}")
+            res["train"] = card_vs_cpu_train(torch, np, pkg, cfg, make,
+                                             counts)
+        bad = parity_faults(res, XHAT_MEAN_TOL)
+        model = make()
+        step = pkg.state.make_eval_step(cfg, model, DEV)
+        step(batch)
+        torch.cuda.synchronize()
+        outs = []
+        counts.reset()
+        ms = timed_steps(torch, lambda: outs.append(step(batch)), STEPS)
+        launches = counts.read()
+        o, xhat = outs[-1]
+        bpp, psnr = float(o.rate1 + o.rate2), float(
+            pkg.loss.psnr(batch - 0.5, xhat))
+        mean_ms = sum(ms) / len(ms)
+        res.update(net=net, eval_batch=[B, 3, H, W], ms_per_step=mean_ms,
+                   ms_per_step_all=ms, mp_per_s=B * H * W / 1e3 / mean_ms,
+                   bpp=bpp, psnr_db=psnr, eval_launches=launches)
+        del outs, o, xhat, step
+        coder = pkg.codec_coder.CodecCoder(cfg, model, DEV)
+        rows = code_images(torch, pkg, counts, coder, images,
+                           reckon_alt(cfg), f"alt_{key} bitstream")
+        res["bitstream"] = [{k: r[k] for k in ("bpp", "psnr", "wall_s",
+                                               "analysis_card_ms",
+                                               "synthesis_card_ms")}
+                            for r in rows]
+        emit(res)
+        if bad or not all(math.isfinite(v) for v in (bpp, psnr)):
+            raise AssertionError(f"alt_{key}: card and CPU disagree: {bad}")
+        expect_launches(
+            (res["launches"], res["train"]["launches"], launches),
+            (reckon_alt(cfg), reckon_alt(cfg, True),
+             {k: STEPS * v for k, v in reckon_alt(cfg).items()}),
+            f"alt_{key} (parity eval, parity train, eval steps)")
+        out[key] = dict(res, cfg=cfg)
+        del model, coder
+        torch.cuda.empty_cache()
+    return out
+
+
 def reckon_coding(cfg):
     """The kernels' launches of one image's real bitstream: the scaling
     AEs' 3x3 convs for the flagship (conv3x3_halo in fp32, conv_v2 in
     bf16), and for onlyEZWT its plc stacks in the encoder's chain and the
-    decoder's passes (kernel 1 in any dtype); the ladder for CDF97."""
+    decoder's passes (kernel 1 in any dtype); the ladder for CDF97 and the
+    attention transforms; the quincunx P/U convs (kernel 1, fp32 in any
+    dtype); none for BasicWavelet (cuDNN convs)."""
     if cfg.netType == "CDF97":
         lift_n, ilift_n = ladder_launches(cfg, False)
         return launches_of(lift=lift_n, ilift=ilift_n)
+    if cfg.netType == "QuincunxLifting":
+        return reckon_quincunx(cfg)
+    if cfg.netType in ("BasicWavelet", "AttentionWavelet",
+                       "AttentionWaveletPostProcessing"):
+        return reckon_alt(cfg)
     n = 2 * coding_conv_launches(cfg)
     plc = 2 * plc_launches(cfg)
     return launches_of(v2=n, conv=plc) if cfg.dtype == "bfloat16" \
@@ -2401,13 +2985,15 @@ def reckon_cdf97_agent(cfg, n_valid):
                        ilift=epochs * (steps * ts + n_valid * es))
 
 
-def ladder_entry(name, lift, rows, level_rows, main_res, train_res):
+def ladder_entry(name, lift, rows, level_rows, main_res, train_res,
+                 alt_launches=0):
     """The ``kernels`` line's entry of one ladder kernel: its launches on
     the CDF97 eval and train paths, and per eval step (each level shape's
     numbers times its launches there) its time by events and on the device,
     the host's time a call, the plain level's, the bound, the old one-axis
     bound, the three-pass form's and the conv yardstick's; the same per
-    train step."""
+    train step. ``alt_launches``: its launches on the attention
+    transforms' paths."""
     mine = [r for r in level_rows if r["kernel"] == name]
 
     def per(key, path="eval"):
@@ -2422,8 +3008,9 @@ def ladder_entry(name, lift, rows, level_rows, main_res, train_res):
             "source": os.path.relpath(lift.SOURCE, HERE),
             "replaces": "scripts/bench_pallas.py:"
                         + ("85" if name == "lift97" else "106"),
-            "launches": ev + tr, "launches_eval_path": ev,
+            "launches": ev + tr + alt_launches, "launches_eval_path": ev,
             "launches_train_path": tr,
+            "launches_attention_transforms": alt_launches,
             "max_abs_err": max(r["max_abs_err"] for r in mine + [
                 r for r in rows if r["kernel"] == name]),
             "ms": per("ms"), "device_ms": per("device_ms"),
@@ -2464,6 +3051,32 @@ def tree_launch_totals(res):
     return total
 
 
+def new_path_launch_totals(res):
+    """Each counter's launches over the counted runs of the quincunx phases
+    (parity, main, bitstream, agent) and of the other transforms' (parity,
+    eval steps, bitstream)."""
+    q, alt = launches_of(), launches_of()
+
+    def add(total, d, times=1):
+        for k in total:
+            total[k] += times * d[k]
+
+    add(q, res["quincunx_parity"]["launches"])
+    add(q, res["quincunx_parity"]["train"]["launches"])
+    add(q, res["quincunx_main"]["launches"])
+    add(q, res["quincunx_main"]["train"]["launches"])
+    for point in res["quincunx_bitstream"]["points"].values():
+        add(q, point["launches_per_image"], BITSTREAM_IMAGES[0])
+    add(q, res["quincunx_agent"]["first_run"]["launches"])
+    add(q, res["quincunx_agent_test"]["launches"])
+    for r in res["alt"].values():
+        add(alt, r["launches"])
+        add(alt, r["train"]["launches"])
+        add(alt, r["eval_launches"])
+        add(alt, reckon_coding(r["cfg"]), ALT_BITSTREAM_IMAGES)
+    return q, alt
+
+
 def kernel_entries(conv, v2, lift97, rows, bwd_rows, v2_rows, lift_rows,
                    level_rows, res):
     """The ``kernels`` line: every hand-written kernel with its launches on
@@ -2483,19 +3096,25 @@ def kernel_entries(conv, v2, lift97, rows, bwd_rows, v2_rows, lift_rows,
     k1_32, b1_32 = rows, bwd_rows        # fp32 operands
     v2_eval, v2_train = by(v2_rows, path="eval"), by(v2_rows, path="train")
     tree = tree_launch_totals(res)
+    quincunx, alt = new_path_launch_totals(res)
+    q_fwd, q_bwd = res["quincunx_kernel"]
+
+    def per_dx(rows_, key):
+        return sum(r[key] * r["dx_launches_per_step"] for r in rows_)
     fp32 = {"parity": res["parity"], "train_parity": res["train_parity"][0],
             "main_fp32": res["main"]["fp32_launches"]["conv3x3_halo"],
             "bitstream": res["bitstream_launches"],
             "agent": res["agent"]["first_run"]["launches"]["conv3x3_halo"],
             "agent_test": res["agent_test"]["launches"]["conv3x3_halo"],
-            "tree_models": tree["conv3x3_halo"]}
+            "tree_models": tree["conv3x3_halo"],
+            "quincunx": quincunx["conv3x3_halo"]}
     bf16 = {"main": res["main"]["launches"]["conv_v2"],
             "train": res["train"]["launches"]["conv_v2"],
             "bitstream_bf16": res["bitstream_bf16_launches"],
             "tree_models": tree["conv_v2"]}
     tpu = "imagecompressionlearnedliftingandlearnedtreebasedmodels_tpu/"
     ladders = [ladder_entry(k, lift97, lift_rows, level_rows,
-                            res["cdf97_main"], res["cdf97_train"])
+                            res["cdf97_main"], res["cdf97_train"], alt[k])
                for k in ("lift97", "ilift97")]
     return [{
         # kernel 1 carries the fp32 convs: its numbers per fp32 eval step
@@ -2507,19 +3126,34 @@ def kernel_entries(conv, v2, lift97, rows, bwd_rows, v2_rows, lift_rows,
                            + [r["fwd_max_abs_err"] for r in bwd_rows]),
         "dtype": "float32", "ms": per(k1_32, "ms"),
         "plain_ms": per(k1_32, "plain_ms"), "bound_ms": per(k1_32, "bound_ms"),
-        "bound_by": bound_by(k1_32), "library_ms": per(k1_32, "library_ms")}, {
+        "bound_by": bound_by(k1_32), "library_ms": per(k1_32, "library_ms"),
+        # the quincunx P/U convs a B=8 512x768 eval step
+        "quincunx_step_launches": sum(r["launches_per_step"] for r in q_fwd),
+        "quincunx_step_ms": per(q_fwd, "ms"),
+        "quincunx_step_plain_ms": per(q_fwd, "plain_ms"),
+        "quincunx_step_bound_ms": per(q_fwd, "bound_ms"),
+        "quincunx_step_library_ms": per(q_fwd, "library_ms")}, {
         "name": "conv3x3_halo_dx", "route": "cuda",
         "source": os.path.relpath(conv.SOURCE, HERE),
         "replaces": tpu + "ops/pallas_conv.py:137",
         "launches": res["train_parity"][1]
         + res["agent"]["first_run"]["launches"]["conv3x3_halo_dx"]
-        + tree["conv3x3_halo_dx"],
+        + tree["conv3x3_halo_dx"] + quincunx["conv3x3_halo_dx"],
+        "launches_quincunx": quincunx["conv3x3_halo_dx"],
         "max_abs_err": max(r["dx_max_abs_err"] for r in bwd_rows),
         "dtype": "float32", "ms": per(b1_32, "dx_ms"),
         "plain_ms": per(b1_32, "dx_plain_ms"),
         "bound_ms": per(b1_32, "dx_bound_ms"),
         "bound_by": bound_by(b1_32, nbytes="dx_bytes_ms"),
-        "library_ms": per(b1_32, "dx_library_ms")}, *ladders, {
+        "library_ms": per(b1_32, "dx_library_ms"),
+        # the quincunx P/U convs' dx a B=8 256x256 train step
+        "quincunx_train_step_launches": sum(r["dx_launches_per_step"]
+                                            for r in q_bwd),
+        "quincunx_train_step_ms": per_dx(q_bwd, "dx_ms"),
+        "quincunx_train_step_plain_ms": per_dx(q_bwd, "dx_plain_ms"),
+        "quincunx_train_step_bound_ms": per_dx(q_bwd, "dx_bound_ms"),
+        "quincunx_train_step_library_ms": per_dx(q_bwd, "dx_library_ms")},
+        *ladders, {
         "name": "conv_v2", "route": "cuda",
         "source": os.path.relpath(v2.SOURCE, HERE),
         "replaces": "scripts/bench_pallas_v2.py:34",
@@ -2675,6 +3309,20 @@ def main() -> int:
         del coder
         torch.cuda.empty_cache()
 
+    with tf32_off(torch):
+        res["quincunx_kernel"] = phase_quincunx_kernel(torch, F, conv, pkg)
+    with tf32_off(torch, deterministic=True):
+        res["quincunx_parity"] = phase_quincunx_parity(torch, numpy, pkg,
+                                                       counts)
+    with tf32_off(torch):
+        res["quincunx_main"] = phase_quincunx_main(torch, numpy, pkg, counts)
+        res["quincunx_bitstream"] = phase_quincunx_bitstream(torch, numpy,
+                                                             pkg, counts)
+        res["quincunx_agent"], res["quincunx_agent_test"] = \
+            phase_quincunx_agent(torch, pkg, counts)
+        res["alt"] = phase_alt_transforms(torch, numpy, pkg, counts)
+    torch.cuda.empty_cache()
+
     v2_eval = [r for r in v2_rows if r["path"] == "eval"]
     v2_train = [r for r in v2_rows if r["path"] == "train"]
 
@@ -2735,7 +3383,7 @@ def main() -> int:
           / cdf_main["ms_per_step"],
           "share_of_train_step": sum(e["train_step_ms"] for e in ladders)
           / cdf_train["ms_per_step"]})
-    emit({"kernels": entries})
+    print(json.dumps({"kernels": entries}), flush=True)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -38,6 +38,10 @@ POSTPROCESS = ("none", "DnCNN", "iwave", "IRCNN", "DIDN", "DUDnCNN")
 MODES = ("train", "train_postprocess", "validate", "validate_recu_reco",
          "test", "debug")
 BLOCK_PROPERTIES = ("same", "different")
+# quincunx split modes: "hv" (horizontal, then vertical lifts), 1 ("1p3"),
+# 2 ("2p2"), 3 ("3p1"); :func:`..ops.quincunx.split_mode_channels` refuses
+# any other value when the transform is built, as the JAX package does
+SPLIT_MODES = ("hv", 1, 2, 3)
 
 
 @dataclass

@@ -17,9 +17,12 @@ from torch import nn
 from ..config import Config
 from ..entropy.bottleneck import EntropyBottleneck
 from ..entropy.models import make_entropy_model
-from ..ops.fast_conv import Conv2d, FastConv3x3
+from ..ops.cbam import CBAMPostProcessing, GroupNorm
+from ..ops.fast_conv import (Conv2d, ConvTranspose2d, FastConv3x3,
+                             StridedConv2d)
+from ..ops.masked_conv import ChannelIncrementalConv2d
 from ..ops.upscaling import ConvTranspose2x2
-from .transforms import make_transform
+from .transforms import QuincunxLiftingTransform, make_transform
 
 
 class LiftingDWTCodec(nn.Module):
@@ -32,10 +35,13 @@ class LiftingDWTCodec(nn.Module):
 
     def forward(self, x: torch.Tensor, training: bool = False,
                 generator=None):
-        xe, xo_list = self.transform.encode(x)
+        # integer lifting draws its training noise from the generator too
+        lifting = isinstance(self.transform, QuincunxLiftingTransform)
+        kw = dict(training=training, generator=generator) if lifting else {}
+        xe, xo_list = self.transform.encode(x, **kw)
         info_xe, info_xo_list, xe_qnt, xo_qnt = self.entropymodel(
             xe, xo_list, training, generator)
-        xhat = self.transform.decode(xe_qnt, xo_qnt)
+        xhat = self.transform.decode(xe_qnt, xo_qnt, **kw)
         return xhat, info_xe, info_xo_list
 
     def aux_loss(self) -> torch.Tensor:
@@ -48,10 +54,11 @@ class CodecWrapper(nn.Module):
     quantizers add uniform noise drawn from ``generator``; the default is
     the eval forward (hard rounding).
 
-    Conv weights start from flax's ``lecun_normal`` (std 1/sqrt(fan_in))
-    drawn from ``generator``; biases start at zero and the GDN and lifting
-    skip parameters at their defined values; entropy bottlenecks take
-    flax's init, their biases drawn from ``generator`` too.
+    Conv and dense weights start from flax's ``lecun_normal`` (std
+    1/sqrt(fan_in)) drawn from ``generator``; biases start at zero and the
+    GDN, GroupNorm, CBAM skip and lifting skip parameters at their defined
+    values; entropy bottlenecks take flax's init, their biases drawn from
+    ``generator`` too.
     """
 
     def __init__(self, cfg: Config,
@@ -86,19 +93,32 @@ class CodecWrapper(nn.Module):
         return xhat, info_xe, info_xo_list, aux
 
 
+_LECUN = (Conv2d, FastConv3x3, StridedConv2d, ChannelIncrementalConv2d,
+          nn.Linear)
+_TRANSPOSED = (ConvTranspose2x2, ConvTranspose2d)   # weight (in, out, kh, kw)
+
+
 @torch.no_grad()
 def reset_conv_weights(model: nn.Module,
                        generator: Optional[torch.Generator] = None) -> None:
-    """lecun_normal conv weights (truncated normal with std 1/sqrt(fan_in)
-    at +-2 std, as flax's initializer) and zero biases. A transposed conv's
-    fan-in is its input channels times its taps, as flax counts it."""
+    """lecun_normal conv and dense weights (truncated normal with std
+    1/sqrt(fan_in) at +-2 std, as flax's initializer) and zero biases, the
+    bias-free convs included; GroupNorm at scale 1 and bias 0, the CBAM
+    head's skip weight at 0.1. A transposed conv's fan-in is its input
+    channels times its taps, as flax counts it."""
     for m in model.modules():
-        if isinstance(m, (Conv2d, FastConv3x3, ConvTranspose2x2)):
-            fan_in = (m.weight[:, 0] if isinstance(m, ConvTranspose2x2)
+        if isinstance(m, _LECUN + _TRANSPOSED):
+            fan_in = (m.weight[:, 0] if isinstance(m, _TRANSPOSED)
                       else m.weight[0]).numel()
             # flax divides by the std of the unit normal truncated at +-2
             std = 1.0 / math.sqrt(fan_in) / 0.87962566103423978
             w = torch.empty(m.weight.shape)
             nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
             m.weight.copy_(w * std)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, GroupNorm):
+            m.scale.fill_(1.0)
             m.bias.zero_()
+        elif isinstance(m, CBAMPostProcessing):
+            m.res_weight.fill_(0.1)

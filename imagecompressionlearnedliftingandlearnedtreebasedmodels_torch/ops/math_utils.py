@@ -141,6 +141,27 @@ def lifting_round(x: torch.Tensor, precision_bits: int,
     if precision_bits <= 0:
         return x
     factor = 255.0 * (2.0 ** (precision_bits - 8))
+    # times the fp32 reciprocal, not a division: XLA compiles the JAX
+    # package's ``/ factor`` so, and a division differs in the last ulp of
+    # about half the values
+    inv = 1.0 / factor
     if generator is not None:
-        return x + uniform_noise(x, generator) / factor
-    return torch.round(x * factor) / factor
+        return x + uniform_noise(x, generator) * inv
+    return torch.round(x * factor) * inv
+
+
+def lifting_add(base: torch.Tensor, x: torch.Tensor, precision_bits: int,
+                sign: float = 1.0) -> torch.Tensor:
+    """``base + sign * lifting_round(x)`` in eval, with the rounded value's
+    scaling and the add as one exactly rounded multiply-add: XLA's CPU
+    backend contracts the JAX package's ``base + round(x*f)/f`` into an FMA,
+    and the separate product and sum differ from it in the last ulp of a
+    third of the values. The product of the integer-valued ``round(x*f)``
+    and the fp32 reciprocal is exact in float64, so the float64 sum rounded
+    to fp32 is the FMA's result (on any device)."""
+    if precision_bits <= 0:
+        return base + sign * x
+    factor = 255.0 * (2.0 ** (precision_bits - 8))
+    inv = torch.tensor(1.0 / factor, dtype=torch.float32).item()
+    r = torch.round(x * factor).double()
+    return (base.double() + r * (sign * inv)).to(base.dtype)

@@ -6,15 +6,23 @@ of the committed ``results/ckpt_snapshots/*.npz`` (f16 leaves plus an
 ``"['codecs_0']['entropymodel']['plc_0']['Conv_1']['kernel']"``.
 The port names that parameter ``codecs.0.entropymodel.plc_0.Conv_1.weight``.
 
-- conv ``kernel`` (kh, kw, in/G, out) -> ``weight`` (out, in/G, kh, kw),
-  the only leaves transposed (and they must be 4-D); under a
-  ``ConvTranspose_*`` segment the kernel (kh, kw, in, out) becomes
-  ``F.conv_transpose2d``'s (in, out, kh, kw) with its taps mirrored, since
-  flax's transposed conv (``transpose_kernel=False``) applies tap
-  ``[kh-1-a, kw-1-b]`` where PyTorch's applies ``[a, b]``;
+- conv ``kernel`` (kh, kw, in/G, out) -> ``weight`` (out, in/G, kh, kw)
+  (it must be 4-D); a conv without a bias has no ``bias`` leaf on either
+  side;
+- the kernel of a flax transposed conv, named by :data:`TRANSPOSED` (a
+  ``ConvTranspose_*`` module, or BasicWavelet's ``inv_{i}_1``),
+  (kh, kw, in, out) becomes ``F.conv_transpose2d``'s (in, out, kh, kw)
+  with its taps mirrored, since flax's transposed conv
+  (``transpose_kernel=False``) applies tap ``[kh-1-a, kw-1-b]`` where
+  PyTorch's applies ``[a, b]``;
+- the kernel of a ``Dense_*`` module (:data:`DENSE`), (in, out), becomes
+  ``nn.Linear``'s (out, in) (it must be 2-D);
 - ``bias``, GDN ``beta``/``gamma`` (reparametrized), lifting ``taps`` and
-  gains ``nh``/``nl``, and the entropy bottlenecks' ``matrix_i``,
-  ``bias_i``, ``factor_i`` and ``quantiles`` are copied raw.
+  gains ``nh``/``nl``, GroupNorm ``scale``, the CBAM head's 0-d
+  ``res_weight``, and the entropy bottlenecks' ``matrix_i``, ``bias_i``,
+  ``factor_i`` and ``quantiles`` are copied raw.
+
+The rules key on module names, never on a leaf's rank.
 
 A gradient tree has the parameter tree's shape, so the same functions carry
 gradients. :func:`flax_params_from_state_dict` is the inverse: a checkpoint
@@ -32,13 +40,31 @@ from torch import nn
 
 _SEGMENT = re.compile(r"\['([^']*)'\]")
 _RAW_LEAF = re.compile(
-    r"bias|beta|gamma|taps|nh|nl|quantiles|(matrix|bias|factor)_\d+")
+    r"bias|beta|gamma|taps|nh|nl|scale|res_weight|quantiles"
+    r"|(matrix|bias|factor)_\d+")
 SKIP_KEYS = ("__iteration__",)
+# port parameter names (dotted) of flax transposed convs (a
+# ``ConvTranspose_*`` module anywhere; BasicWavelet's ``inv_{i}_1``, a
+# transform's own child) and of flax dense layers
+TRANSPOSED = re.compile(r"(.*\.)?ConvTranspose_\d+\.weight"
+                        r"|(.*\.transform\.)?inv_\d+_1\.weight")
+DENSE = re.compile(r"(.*\.)?Dense_\d+\.weight")
 
 
-def _transposed(name: str) -> bool:
-    """Whether port parameter ``name`` belongs to a flax ``ConvTranspose``."""
-    return any(s.startswith("ConvTranspose_") for s in name.split("."))
+def _kind(name: str) -> str:
+    """'transposed', 'dense' or 'conv' for a port ``*.weight`` name."""
+    if TRANSPOSED.fullmatch(name):
+        return "transposed"
+    if DENSE.fullmatch(name):
+        return "dense"
+    return "conv"
+
+
+def _check_rank(t: torch.Tensor, kind: str, what: str) -> None:
+    want = 2 if kind == "dense" else 4
+    if t.dim() != want:
+        raise ValueError(f"{what}: a {kind} kernel must be {want}-D, got "
+                         f"{tuple(t.shape)}")
 
 
 def flatten_params(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -95,11 +121,14 @@ def state_dict_from_flax(flat: Mapping[str, np.ndarray]
         name = port_name(key)
         t = torch.from_numpy(np.array(value, dtype=np.float32))
         if name.rsplit(".", 1)[-1] == "weight":
-            if t.dim() != 4:
-                raise ValueError(f"{key}: conv kernel must be 4-D, got "
-                                 f"{tuple(t.shape)}")
-            t = (t.permute(2, 3, 0, 1).flip(2, 3) if _transposed(name)
-                 else t.permute(3, 2, 0, 1))
+            kind = _kind(name)
+            _check_rank(t, kind, key)
+            if kind == "transposed":
+                t = t.permute(2, 3, 0, 1).flip(2, 3)
+            elif kind == "dense":
+                t = t.t()
+            else:
+                t = t.permute(3, 2, 0, 1)
         out[name] = t.contiguous()
     return out
 
@@ -123,12 +152,16 @@ def flax_params_from_state_dict(sd: Mapping[str, torch.Tensor]
     for name, t in sd.items():
         t = t.detach().to("cpu", torch.float32)
         if name.rsplit(".", 1)[-1] == "weight":
-            if t.dim() != 4:
-                raise ValueError(f"{name}: conv weight must be 4-D, got "
-                                 f"{tuple(t.shape)}")
-            t = (t.flip(2, 3).permute(2, 3, 0, 1) if _transposed(name)
-                 else t.permute(2, 3, 1, 0))
-        out[flax_key(name)] = np.ascontiguousarray(t.numpy())
+            kind = _kind(name)
+            _check_rank(t, kind, name)
+            if kind == "transposed":
+                t = t.flip(2, 3).permute(2, 3, 0, 1)
+            elif kind == "dense":
+                t = t.t()
+            else:
+                t = t.permute(2, 3, 1, 0)
+        # (np.ascontiguousarray would make a 0-d leaf 1-d)
+        out[flax_key(name)] = t.contiguous().numpy().copy()
     return out
 
 

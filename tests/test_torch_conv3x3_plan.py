@@ -47,14 +47,16 @@ def _card_shapes():
 
 def _plan_cases():
     """(b, h, w, cin, cout) of every launch the kernel serves: each 3x3 conv
-    of the B=8 512x768 eval step and of the B=8 256x256 train step with its
-    dx (Cin and Cout swapped), and the card tests' cases, forward and
-    dx."""
+    of the flagship's and the quincunx codec's B=8 512x768 eval steps and
+    B=8 256x256 train steps with its dx (Cin and Cout swapped), and the
+    card tests' cases, forward and dx."""
     cfg = config.flagship_config()
+    qcfg = config.Config(**chip_smoke.QUINCUNX).validate()
     cases = set()
     for size, b in (((chip_smoke.H, chip_smoke.W), chip_smoke.B),
                     ((chip_smoke.TRAIN_P,) * 2, chip_smoke.TRAIN_B)):
-        for h, w, cin, cout in chip_smoke.conv_shapes(cfg, size):
+        for h, w, cin, cout in [*chip_smoke.conv_shapes(cfg, size),
+                                *chip_smoke.quincunx_conv_shapes(qcfg, size)]:
             cases.update({(b, h, w, cin, cout), (b, h, w, cout, cin)})
     for b, h, w, cin, cout in _card_shapes():
         cases.update({(b, h, w, cin, cout), (b, h, w, cout, cin)})
@@ -199,3 +201,21 @@ def test_launch_kernel_refuses_bf16_operands():
     with pytest.raises(ValueError, match="fp32"):
         conv.launch_kernel(x.float(), w9)
     assert conv.launches == 0
+
+
+def test_quincunx_shapes_and_their_reckoned_launches():
+    """The quincunx P/U convs of a B=8 512x768 eval step: a horizontal lift
+    on the (H, W/2) halves and two vertical lifts on the quarters a level,
+    3 -> 96 and 96 -> 3 each; 144 launches a step, and a train step one dx
+    fewer than its forwards (the first layer sees the image)."""
+    qcfg = config.Config(**chip_smoke.QUINCUNX).validate()
+    shapes = chip_smoke.quincunx_conv_shapes(qcfg)
+    assert {(h, w) for h, w, _, _ in shapes} == {
+        (512, 384), (256, 384), (256, 192), (128, 192), (128, 96), (64, 96)}
+    assert {(cin, cout) for _, _, cin, cout in shapes} == {(3, 96), (96, 3)}
+    assert sum(shapes.values()) == 144
+    train = chip_smoke.reckon_quincunx(qcfg, True, (256, 256))
+    assert (train["conv3x3_halo"], train["conv3x3_halo_dx"]) == (287, 143)
+    first = chip_smoke.quincunx_first_layer(qcfg, (256, 256))
+    assert first == (256, 128, 3, 96)
+    assert first in chip_smoke.quincunx_conv_shapes(qcfg, (256, 256))

@@ -6,7 +6,9 @@ one axis and over a whole level (adjoints, repeats, the launches of the
 multi-level transform and its backward); the tree-based entropy models
 (onlyEZWT, ZTBlock) in the flagship codec on the card against the CPU, with
 the kernels' launches counted per model and dtype, and their coding path's
-parameter passes on the card. Imports no JAX, so it runs where only
+parameter passes on the card; the quincunx lifting nets of the lambda=400
+snapshot on kernel 1 (the same bits twice, card against CPU, a stream
+decoded twice to the same bits) and the other transforms on the card. Imports no JAX, so it runs where only
 PyTorch is installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -26,6 +28,8 @@ from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.models import
     codec)
 from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.ops import (
     conv3x3_halo as conv, conv_v2, dwt97, lift97)
+from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.tools import (
+    weights)
 from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.train import (
     data, state)
 
@@ -496,3 +500,78 @@ def test_tree_coding_parameter_passes_run_on_the_card(card, entropy_layer):
     img = data.synthetic_natural_images(1, 64, seed=2)[0]
     res = gpu.compress_decompress(img[None].astype(np.float32) / 255.0)
     assert np.isfinite(res.bpp) and res.bpp > 0 and np.isfinite(res.psnr)
+
+
+QUINCUNX = dict(netType="QuincunxLifting", entropy_layer="factorized",
+                autoencoder="SubbandAutoEncoder", clrch=3, dwtlevels=3,
+                split_mode="hv", lif_prec_bits=8, num_lifting_perlayer=2,
+                lambda_=400.0)
+
+
+def quincunx_model():
+    import os
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    model = codec.CodecWrapper(config.Config(**QUINCUNX).validate())
+    weights.load_flax_params(model, weights.load_npz(os.path.join(
+        root, "results", "ckpt_snapshots", "quincunx_lam400.npz")))
+    return model
+
+
+@pytest.mark.cuda
+def test_quincunx_lifting_on_kernel_1_gives_the_same_bits(card):
+    """The lambda=400 snapshot's analysis on the card: every P/U conv on
+    kernel 1 (72 launches), the same subbands bit for bit twice, rounded
+    subbands equal to the CPU's in >= 99.9 % of elements (integer lifting
+    may flip a grid step where a value sits within an ulp of a boundary);
+    one plane's stream decodes twice to the same bits."""
+    model = quincunx_model()
+    img = data.synthetic_natural_images(1, 128, seed=4)[0]
+    x = torch.from_numpy(img).permute(2, 0, 1)[None].float() / 255.0 - 0.5
+    with torch.inference_mode():
+        want = model.codec.transform.encode(x)
+        model.to(card)
+        conv.launches = 0
+        a = model.codec.transform.encode(x.to(card))
+        torch.cuda.synchronize()
+        assert conv.launches == 72
+        b = model.codec.transform.encode(x.to(card))
+    flat = [torch.cat([s[0].flatten().cpu()] + [t.flatten().cpu()
+                                                for t in s[1]])
+            for s in (want, a, b)]
+    assert torch.equal(flat[1], flat[2])
+    assert (flat[0].round() == flat[1].round()).double().mean() >= 0.999
+    coder = codec_coder.CodecCoder(model.cfg, model, card)
+    streams, _, xe_hat, xo_hats = coder.compress_plane(0, x.to(card))
+    shapes = (xe_hat.shape, [t.shape for t in xo_hats])
+    np.testing.assert_array_equal(coder.decompress_plane(0, streams, *shapes),
+                                  coder.decompress_plane(0, streams, *shapes))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("net", ["BasicWavelet", "AttentionWavelet",
+                                 "AttentionWaveletPostProcessing"])
+def test_other_transforms_on_the_card(card, net):
+    """Seeded weights, fp32: the eval step on the card against the CPU, the
+    ladder kernels launched once a level each way for the attention
+    transforms (none for BasicWavelet), one train step finite."""
+    cfg = config.Config(netType=net, entropy_layer="factorized", clrch=3,
+                        dwtlevels=3, lambda_=400.0).validate()
+    model = codec.CodecWrapper(cfg, generator=torch.Generator().manual_seed(0))
+    x = torch.from_numpy(data.synthetic_natural_images(1, 64, seed=1)[0]
+                         ).permute(2, 0, 1)[None].float() / 255.0
+    want, _ = state.make_eval_step(cfg, model, "cpu")(x)
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        lift97.launches_lift = lift97.launches_ilift = 0
+        got, _ = state.make_eval_step(cfg, model, card)(x)
+        torch.cuda.synchronize()
+        n = 0 if net == "BasicWavelet" else 3
+        assert (lift97.launches_lift, lift97.launches_ilift) == (n, n)
+        assert abs(float(got.loss) - float(want.loss)) \
+            <= 1e-4 * abs(float(want.loss))
+        step = state.make_train_step(cfg, model,
+                                     state.make_optimizer(cfg, model), card)
+        out, _ = step(x, torch.Generator().manual_seed(2), 1e-4, 1.0)
+        assert torch.isfinite(out.loss)
+    finally:
+        torch.backends.cudnn.allow_tf32 = True

@@ -205,6 +205,8 @@ def test_identity_ae_round_trip_is_exact():
 
 
 def test_make_transform_rejects_unported():
+    """Every netType of the config is ported now: a name outside them is
+    refused."""
     _, pcfg = _cfgs()
-    with pytest.raises(NotImplementedError):
-        ptr.make_transform(dataclasses.replace(pcfg, netType="BasicWavelet"))
+    with pytest.raises(ValueError, match="unknown netType"):
+        ptr.make_transform(dataclasses.replace(pcfg, netType="HaarWavelet"))
