@@ -21,11 +21,13 @@ The real bitstream codes with the host C++ of ``csrc/*.cpp``.
                 ladder kernels
 - ``entropy``   conditional Gaussian, learned-CDF bottleneck and the subband
                 entropy models (factorized, onlyEZWT, ZTsep, ZTBlock)
-- ``models``    the learned lifting transform and the codec graph
+- ``models``    the transforms, the codec graph and the restoration nets
 - ``train``     the rate-distortion loss, the eval and train steps, the
-                data loader, checkpoints and the training agent
+                data loader, checkpoints, the training agent and the
+                postprocess stage
 - ``coding``    the real bitstream: rANS, the context walkers, the codec
-                coder (the agent's ``test`` mode)
+                coder (the agent's ``test`` mode) and its tiled form
+- ``parallel``  overlapped tiling of a high-resolution image
 - ``cli``       ``python -m ..._torch.cli config.json``: run an experiment
 - ``utils``     heartbeat, phase timers, device trace
 - ``tools``     carrying weights between the flax tree and the port

@@ -10,7 +10,8 @@ Runs the agent named by ``config.agent`` and expands
 created under ``./experiments``.
 
 The run is on the GPU (it fails when there is none) unless ``--device cpu``
-asks for the plain PyTorch versions on the CPU, for a rehearsal.
+asks for the plain PyTorch versions on the CPU, for a rehearsal; fp32 runs
+at full fp32 precision (TF32 off, ``config.full_fp32``).
 ``--resume-training`` continues from the run's rolling checkpoint.
 ``--supervise`` (restart on a crash or a hang) is not ported yet: it waits
 for the supervisor, ROADMAP Queue A item 13.
@@ -22,7 +23,7 @@ import json
 import os
 import sys
 
-from .config import expand_sweep, process_config
+from .config import expand_sweep, full_fp32, process_config
 from .registry import get_agent
 
 
@@ -54,6 +55,7 @@ def _aggregate_results(cfg, agents, experiments_root="experiments"):
 
 def main(argv=None):
     argv = list(argv if argv is not None else sys.argv[1:])
+    full_fp32()
     if "--supervise" in argv:
         raise NotImplementedError(
             "--supervise needs the liveness supervisor, which is not ported "

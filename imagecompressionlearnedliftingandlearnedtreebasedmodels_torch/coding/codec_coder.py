@@ -22,8 +22,10 @@ them:
   (``level_coset_params``); a level's four coset streams are framed by
   :func:`_pack_chunks`.
 
-Tiled coding (ROADMAP Queue A item 13) is not ported yet and raises
-``NotImplementedError``.
+Tiled coding is ``coding/tiled_coder.py``'s, over this coder's
+``compress_plane`` / ``decompress_plane``; as in the JAX package, this
+coder codes a whole image whatever ``tile_size`` says (the agent's ``test``
+routes to tiles).
 
 :meth:`CodecCoder.compress_decompress_many` codes a list of images, the
 first alone and the rest on a pool of threads; each result carries its own
@@ -47,13 +49,11 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..config import Config, resolve_device
+from ..config import Config, full_fp32, resolve_device
 from ..entropy import gaussian
 from ..ops import color
 from ..tools import weights
 from . import rans
-
-_UNPORTED = "is not ported yet (ROADMAP Queue A item {})"
 
 
 @dataclasses.dataclass
@@ -130,6 +130,7 @@ class CodecCoder:
     def __init__(self, cfg: Config, model, device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        full_fp32()
         self.model = model.to(self.device)
         self.n_planes = 1 if cfg.clrch == 3 else 3
         self._gc_cdfs, self._gc_lengths, self._gc_offsets = _gc_tables()
@@ -448,6 +449,25 @@ class CodecCoder:
         return xe_hat, xo_hat
 
     # --- top level ------------------------------------------------------
+    def planes(self, batch: np.ndarray) -> List[torch.Tensor]:
+        """The colour policy: NHWC RGB in [0, 1] -> the codec's planes, NCHW
+        on the device (joint RGB shifted by 0.5, or shifted Y, Cb, Cr)."""
+        x = torch.from_numpy(np.ascontiguousarray(batch, np.float32)).permute(
+            0, 3, 1, 2).to(self.device)
+        if self.cfg.clrch == 3:
+            return [x - 0.5]
+        ycbcr = color.shift_ycbcr(color.rgb_to_ycbcr(x))
+        return [ycbcr[:, i:i + 1] for i in range(3)]
+
+    def rgb(self, yhats) -> np.ndarray:
+        """Inverse of :meth:`planes` on decoded NHWC planes: RGB in [0, 1]."""
+        if self.cfg.clrch == 3:
+            return np.clip(yhats[0], -0.5, 0.5) + 0.5
+        y = torch.from_numpy(np.concatenate(yhats, axis=-1)).permute(
+            0, 3, 1, 2)
+        return np.clip(_nhwc(color.ycbcr_to_rgb(color.unshift_ycbcr(y))),
+                       0.0, 1.0)
+
     def compress_decompress(self, batch: np.ndarray) -> CodecResult:
         """Full round trip of one RGB image, NHWC (1, h, w, 3) in [0, 1]:
         the reconstruction, the real bits per pixel and the PSNR. Raises if
@@ -486,21 +506,10 @@ class CodecCoder:
         return out
 
     def _round_trip(self, batch: np.ndarray, events: bool) -> CodecResult:
-        cfg = self.cfg
         b, h, w, _ = batch.shape
         if b != 1:
             raise ValueError("the coding path processes one image at a time")
-        if cfg.tile_size and h > cfg.tile_size and h % cfg.tile_size == 0:
-            raise NotImplementedError(
-                f"tiled coding (tile_size {cfg.tile_size}) "
-                + _UNPORTED.format(13))
-        x = torch.from_numpy(np.ascontiguousarray(batch, np.float32)).permute(
-            0, 3, 1, 2).to(self.device)
-        if cfg.clrch == 3:
-            planes = [x - 0.5]
-        else:
-            ycbcr = color.shift_ycbcr(color.rgb_to_ycbcr(x))
-            planes = [ycbcr[:, i:i + 1] for i in range(3)]
+        planes = self.planes(batch)
         timing = {"encode_host_ms": 0.0, "decode_host_ms": 0.0}
         lock = threading.Lock()
 
@@ -543,13 +552,7 @@ class CodecCoder:
         if events:
             timing.update(analysis_ms=analysis_ms, synthesis_ms=synthesis_ms)
 
-        if cfg.clrch == 3:
-            xhat = np.clip(yhats[0], -0.5, 0.5) + 0.5
-        else:
-            y = torch.from_numpy(np.concatenate(yhats, axis=-1)).permute(
-                0, 3, 1, 2)
-            xhat = _nhwc(color.ycbcr_to_rgb(color.unshift_ycbcr(y)))
-            xhat = np.clip(xhat, 0.0, 1.0)
+        xhat = self.rgb(yhats)
         total_bytes = sum(s.nbytes() for s in streams)
         bpp = total_bytes * 8.0 / (h * w)
         mse = float(np.mean((batch - xhat) ** 2))

@@ -241,6 +241,18 @@ def compute_dtype(cfg: Config) -> Optional[torch.dtype]:
     return None
 
 
+def full_fp32() -> None:
+    """Run fp32 convs and matmuls at full fp32 precision on the card, as the
+    JAX package's reference computes them: PyTorch lets cuDNN convs (and,
+    on request, matmuls) round their operands to TF32. Every entry point
+    calls it (the CLI, the agent, ``CodecCoder``, ``make_train_step``,
+    ``make_eval_step`` and their postprocess forms, ``tools/rd_heldout.py``);
+    a bf16 config's fp32 parts (onlyEZWT's plc, the bias adds, the entropy
+    models' fp32 convs) stay fp32 with it. The flags are process-wide."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: CUDA unless the caller names
     another. Never falls back to the CPU on its own."""

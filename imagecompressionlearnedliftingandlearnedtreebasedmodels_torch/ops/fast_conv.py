@@ -8,10 +8,10 @@
   ``csrc/conv_v2.cu``, fp32 operands the CUDA-core ``csrc/conv3x3_halo.cu``
   (forward and dx alike).
 - :class:`Conv2d`: any other SAME conv (the 5x5 lifting P/U convs, the
-  grouped 1x1 fusion stack, the CBAM head's convs). ``F.conv2d``, grouped
-  where needed: the JAX package's ``FastConv5x5``/``FastGroupedConv1x1``
-  are layout rewrites for the TPU's matrix unit with the values of a plain
-  conv.
+  grouped 1x1 fusion stack, the CBAM head's convs, the restoration nets'
+  dilated and 1x1 convs). ``F.conv2d``, grouped or dilated where needed:
+  the JAX package's ``FastConv5x5``/``FastGroupedConv1x1`` are layout
+  rewrites for the TPU's matrix unit with the values of a plain conv.
 - :class:`StridedConv2d` and :class:`ConvTranspose2d`: the stride-2 SAME
   conv and its transposed counterpart of ``BasicWavelet``, padded and
   cropped as flax's ``nn.Conv`` / ``nn.ConvTranspose`` do.
@@ -36,25 +36,31 @@ class Conv2d(nn.Module):
 
     With ``dtype=bfloat16`` the conv runs on bf16 operands and its bf16
     output is cast to fp32 before the fp32 bias is added, as the JAX
-    package's ``FastConv5x5``/``nn.Conv(dtype=bf16)`` do.
+    package's ``FastConv5x5``/``nn.Conv(dtype=bf16)`` do. A ``dilation``
+    pads ``dilation * (k // 2)`` on each side (flax's SAME for an odd
+    kernel); ``stride`` 2 keeps that padding (PyTorch's alignment, which
+    the JAX package's DIDN asks for explicitly, not flax's SAME).
     """
 
     def __init__(self, cin: int, cout: int, kernel_size: int, groups: int = 1,
-                 dtype=None, bias: bool = True):
+                 dtype=None, bias: bool = True, dilation: int = 1,
+                 stride: int = 1):
         super().__init__()
         self.groups = groups
         self.dtype = dtype
-        self.padding = kernel_size // 2
+        self.dilation, self.stride = dilation, stride
+        self.padding = dilation * (kernel_size // 2)
         self.weight = nn.Parameter(
             torch.zeros(cout, cin // groups, kernel_size, kernel_size))
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
 
     def conv(self, x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+        kw = dict(padding=self.padding, groups=self.groups,
+                  dilation=self.dilation, stride=self.stride)
         if self.dtype is None:
-            y = F.conv2d(x, weight, padding=self.padding, groups=self.groups)
+            y = F.conv2d(x, weight, **kw)
         else:
-            y = F.conv2d(x.to(self.dtype), weight.to(self.dtype),
-                         padding=self.padding, groups=self.groups).float()
+            y = F.conv2d(x.to(self.dtype), weight.to(self.dtype), **kw).float()
         return y if self.bias is None else y + self.bias.view(1, -1, 1, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -106,4 +106,4 @@ def make_subband_ae(kind: str, in_ch: int, dtype=None) -> nn.Module:
         return SubbandAutoEncoderBerk(in_ch=in_ch, dtype=dtype)
     if kind == "none":
         return IdentityAE()
-    raise NotImplementedError(f"autoencoder {kind!r} is not ported yet")
+    raise ValueError(f"unknown autoencoder kind {kind!r}")

@@ -19,6 +19,15 @@ takes the flagship config with that entropy model; its "snapshot" weights
 are the snapshot's transform and the entropy model of the port's init with
 seed 0 (as ``chip_smoke.py``'s tree phases build it).
 
+``--per-module`` finds the op behind a gap: for every module that holds a
+weight it compares the module's output and the gradient at that output
+(``dy``) with the float64 step's, for each fp32 step, and lists the
+modules whose parameter gradients are furthest from float64 with those
+gaps. A module whose output and ``dy`` agree with float64 while its own
+gradients do not computed them badly itself; one whose ``dy`` is already
+off inherits the gap from the ops after it. ``--no-cudnn`` runs the card
+step with cuDNN off (PyTorch's own GPU convs) as a second card reading.
+
 The float64 step needs three things the port does not offer, so they are
 patched in for its duration only: the dense 3x3 conv is a plain
 ``F.conv2d`` (the Function casts its operands to fp32 or bf16), the noise
@@ -39,6 +48,7 @@ from typing import Dict
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 from .. import config as config_mod
 from ..models import codec
@@ -91,17 +101,47 @@ def make_model(cfg, kind: str):
     return model
 
 
-def grads_fp32(cfg, model, batch, device: str):
+@contextlib.contextmanager
+def module_probe(model, store):
+    """While active, ``store[name]`` collects ``(output, dy)`` in float64 on
+    the CPU for every call of each module of ``model`` that holds a weight
+    (``store`` None: nothing is recorded)."""
+    handles = []
+
+    def hook(name):
+        def fwd(mod, inputs, out):
+            rec = [out.detach().cpu().double(), None]
+            store.setdefault(name, []).append(rec)
+            if out.requires_grad:
+                def grad(g):
+                    rec[1] = g.detach().cpu().double()
+                out.register_hook(grad)
+        return fwd
+
+    if store is not None:
+        handles = [m.register_forward_hook(hook(n))
+                   for n, m in model.named_modules()
+                   if isinstance(getattr(m, "weight", None), nn.Parameter)]
+    try:
+        yield
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def grads_fp32(cfg, model, batch, device: str, store=None):
     step = state.make_train_step(cfg, model,
                                  state.make_optimizer(cfg, model), device)
-    out, _ = step(batch, torch.Generator().manual_seed(NOISE_SEED), LR, 1.0)
+    with module_probe(model, store):
+        out, _ = step(batch, torch.Generator().manual_seed(NOISE_SEED), LR,
+                      1.0)
     return float(out.loss), {n: p.grad.detach().cpu().double()
                              for n, p in model.named_parameters()}
 
 
-def grads_f64(cfg, model, batch):
+def grads_f64(cfg, model, batch, store=None):
     model = model.double().train()
-    with float64_patches():
+    with float64_patches(), module_probe(model, store):
         xs, xhat, info_xe, info_xo, aux = state.apply_color_forward(
             cfg, model, batch.double(), True,
             torch.Generator().manual_seed(NOISE_SEED))
@@ -111,6 +151,57 @@ def grads_f64(cfg, model, batch):
         raise AssertionError("the reference step did not stay in float64")
     return float(out.loss.detach()), {n: p.grad.detach()
                                       for n, p in model.named_parameters()}
+
+
+def _gap(got, want) -> float:
+    got, want = torch.cat([t.reshape(-1) for t in got]), torch.cat(
+        [t.reshape(-1) for t in want])
+    return ((got - want).abs().max() / want.abs().max().clamp_min(1e-300)
+            ).item()
+
+
+def _flips(calls_got, calls_want) -> int:
+    """Outputs on the other side of zero than float64's (where a LeakyReLU
+    after the module takes the other slope)."""
+    return sum(int(((g[0] > 0) != (w[0] > 0)).sum())
+               for g, w in zip(calls_got, calls_want))
+
+
+def total_flips(got: dict, want: dict) -> int:
+    return sum(_flips(got[m], want[m]) for m in want
+               if len(got.get(m, [])) == len(want[m]))
+
+
+def module_gaps(got: dict, want: dict, errs: Dict[str, float],
+                top: int = 8) -> list:
+    """The ``top`` modules whose parameter gradients are furthest from
+    float64, then every module beside the worst one (its parent's other
+    children, in order), each with the gap of its output and of its
+    ``dy``."""
+    worst = {}
+    for n, e in errs.items():
+        mod = n.rsplit(".", 1)[0]
+        worst[mod] = max(worst.get(mod, 0.0), e)
+    ranked = sorted(worst, key=worst.get, reverse=True)[:top]
+    parent = ranked[0].rsplit(".", 1)[0] + "."
+    siblings = [m for m in worst if m.startswith(parent)
+                and "." not in m[len(parent):] and m not in ranked]
+    rows = []
+    for mod in ranked + siblings:
+        calls_got, calls_want = got.get(mod, []), want.get(mod, [])
+        row = {"module": mod, "grad_gap": worst[mod],
+               "calls": len(calls_want)}
+        if calls_want and len(calls_got) == len(calls_want):
+            row["output_gap"] = _gap([c[0] for c in calls_got],
+                                     [c[0] for c in calls_want])
+            row["sign_flips"] = _flips(calls_got, calls_want)
+            if all(c[1] is not None for c in calls_got + calls_want):
+                row["dy_gap"] = _gap([c[1] for c in calls_got],
+                                     [c[1] for c in calls_want])
+                row["dy_max_abs"] = max(c[1].abs().max().item()
+                                        for c in calls_want)
+        rows.append(row)
+    return rows
 
 
 def per_tensor_errors(got: Dict[str, torch.Tensor],
@@ -126,18 +217,41 @@ def summary(errs: Dict[str, float]) -> dict:
             "tensors_over_1e-4": sum(e > 1e-4 for e in errs.values())}
 
 
-def compare(cfg, kind: str, batch, use_card: bool) -> dict:
-    loss64, g64 = grads_f64(cfg, make_model(cfg, kind), batch)
-    loss_cpu, g_cpu = grads_fp32(cfg, make_model(cfg, kind), batch, "cpu")
+def compare(cfg, kind: str, batch, use_card: bool, per_module: bool = False,
+            no_cudnn: bool = False) -> dict:
+    probes = ({}, {}, {}, {}) if per_module else (None,) * 4
+    loss64, g64 = grads_f64(cfg, make_model(cfg, kind), batch, probes[0])
+    loss_cpu, g_cpu = grads_fp32(cfg, make_model(cfg, kind), batch, "cpu",
+                                 probes[1])
     e_cpu = per_tensor_errors(g_cpu, g64)
     res = {"weights": kind, "batch": list(batch.shape), "tensors": len(g64),
            "loss_f64": loss64, "loss_cpu32": loss_cpu,
            "cpu32_vs_f64": summary(e_cpu)}
+    if per_module:
+        res["cpu32_modules"] = module_gaps(probes[1], probes[0], e_cpu)
+        res["cpu32_sign_flips"] = total_flips(probes[1], probes[0])
+    if use_card and no_cudnn:
+        torch.backends.cudnn.enabled = False
+        try:
+            _, g_nc = grads_fp32(cfg, make_model(cfg, kind), batch, "cuda",
+                                 probes[3])
+        finally:
+            torch.backends.cudnn.enabled = True
+        e_nc = per_tensor_errors(g_nc, g64)
+        res["card32_no_cudnn_vs_f64"] = summary(e_nc)
+        if per_module:
+            res["card32_no_cudnn_modules"] = module_gaps(probes[3],
+                                                         probes[0], e_nc)
+            res["card32_no_cudnn_sign_flips"] = total_flips(probes[3],
+                                                            probes[0])
     if use_card:
         loss_card, g_card = grads_fp32(cfg, make_model(cfg, kind), batch,
-                                       "cuda")
+                                       "cuda", probes[2])
         e_card = per_tensor_errors(g_card, g64)
         e_both = per_tensor_errors(g_card, g_cpu)
+        if per_module:
+            res["card32_modules"] = module_gaps(probes[2], probes[0], e_card)
+            res["card32_sign_flips"] = total_flips(probes[2], probes[0])
         res.update(loss_card32=loss_card, card32_vs_f64=summary(e_card),
                    card32_vs_cpu32=summary(e_both),
                    largest_card32_vs_cpu32=[
@@ -158,6 +272,10 @@ def main(argv=None) -> int:
                     choices=("snapshot", "random"))
     ap.add_argument("--entropy-layer", default="conditioned2ZTsepSubbands",
                     choices=config_mod.ENTROPY_LAYERS[1:])
+    ap.add_argument("--per-module", action="store_true",
+                    help="each module's output and dy gaps (see above)")
+    ap.add_argument("--no-cudnn", action="store_true",
+                    help="also a card step with cuDNN off")
     args = ap.parse_args(argv)
 
     use_card = args.device == "cuda"
@@ -177,7 +295,9 @@ def main(argv=None) -> int:
     torch.backends.cudnn.deterministic = True
     try:
         for kind in args.weights:
-            print(json.dumps(compare(cfg, kind, batch, use_card)), flush=True)
+            print(json.dumps(compare(cfg, kind, batch, use_card,
+                                     args.per_module, args.no_cudnn)),
+                  flush=True)
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32,

@@ -25,11 +25,15 @@ bit for bit, or the coder raises), and beside them
 The held-out set: the 19 dead-leaves images
 ``synthetic_natural_images(19, 256, seed=9999)`` and the 5 photographs
 that matplotlib, scikit-learn and pygame install, cropped to multiples of
-64 as ``scripts/rd_sweep.py::build_dirs`` crops them; a photograph whose
-package is missing is left out (and listed). Names sort as in
-``rd_*.json``'s ``eval_set``. It runs on the card unless ``--device
-cpu`` asks for the CPU; the photographs need the three packages, which
-the card's machine lacks.
+64 as ``scripts/rd_sweep.py::build_dirs`` crops them. Where a package (or
+PIL) is missing, its photographs come from ``results/heldout_photos.npz``
+(uint8 HWC, one key a name), which
+
+    python -m imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.tools.rd_heldout --write-photos
+
+writes from the packages' crops; a photograph found in neither is left
+out (and listed). Names sort as in ``rd_*.json``'s ``eval_set``. It runs
+on the card unless ``--device cpu`` asks for the CPU.
 """
 
 from __future__ import annotations
@@ -66,6 +70,7 @@ FLAGSHIP = dict(netType="LiftingBasedNeuralWaveletv4",
                 block_property="same", scale=0, linearity_flag=1,
                 res_connection_weight=0.1)
 PHOTO_TARGETS = "port_photo_targets.json"
+PHOTOS_NPZ = os.path.join(RESULTS, "heldout_photos.npz")
 # name -> (config, snapshot, lambda, the JAX point's file, the files of the
 # JAX package's CPU coding of the same images)
 POINTS = {
@@ -130,18 +135,49 @@ def photo_sources() -> List[Tuple[str, str]]:
     return [(n, p) for n, p in cands if os.path.exists(p)]
 
 
-def heldout_images() -> Dict[str, np.ndarray]:
-    """The held-out set as ``{name: uint8 HWC}``, names sorted as in
-    ``rd_*.json``'s ``eval_set`` (without the ``.png``)."""
-    from PIL import Image
-    n, size, seed = DEAD_LEAVES
-    out = {f"natural_{seed}_{k:04d}": img for k, img in enumerate(
-        data.synthetic_natural_images(n, size, seed=seed))}
+def package_photos() -> Dict[str, np.ndarray]:
+    """``{name: uint8 HWC}`` of the photographs the installed packages ship,
+    each cropped to multiples of 64 from its top left corner (none without
+    PIL)."""
+    try:
+        from PIL import Image
+    except ImportError:
+        return {}
+    out = {}
     for name, path in photo_sources():
         img = np.asarray(Image.open(path).convert("RGB"))
         h, w, _ = img.shape
         out[name] = np.ascontiguousarray(img[:h - h % 64, :w - w % 64])
+    return out
+
+
+def heldout_images() -> Dict[str, np.ndarray]:
+    """The held-out set as ``{name: uint8 HWC}``, names sorted as in
+    ``rd_*.json``'s ``eval_set`` (without the ``.png``): the photographs
+    from their packages, or else from :data:`PHOTOS_NPZ`."""
+    n, size, seed = DEAD_LEAVES
+    out = {f"natural_{seed}_{k:04d}": img for k, img in enumerate(
+        data.synthetic_natural_images(n, size, seed=seed))}
+    out.update(package_photos())
+    if os.path.exists(PHOTOS_NPZ):
+        with np.load(PHOTOS_NPZ) as committed:
+            for name in committed.files:
+                out.setdefault(name, committed[name])
     return dict(sorted(out.items()))
+
+
+def write_photos(path: str = PHOTOS_NPZ) -> Dict[str, np.ndarray]:
+    """Write the packages' crops of the photographs to ``path``
+    (``np.savez_compressed``, uint8 HWC, one key a name)."""
+    photos = package_photos()
+    missing = {"grace_hopper", "sk_china", "sk_flower", "pg_camera",
+               "pg_background"} - set(photos)
+    if missing:
+        raise RuntimeError(f"photographs {sorted(missing)} not found: "
+                           "--write-photos needs matplotlib, scikit-learn, "
+                           "pygame and PIL")
+    np.savez_compressed(path, **photos)
+    return photos
 
 
 def point_config(name: str) -> config_mod.Config:
@@ -222,8 +258,18 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default=None,
                     help="cpu, or the card (cuda) when not given")
+    ap.add_argument("--write-photos", action="store_true",
+                    help="write results/heldout_photos.npz from the "
+                         "packages' photographs and stop")
     args = ap.parse_args(argv)
+    if args.write_photos:
+        photos = write_photos()
+        print(json.dumps({"wrote": os.path.relpath(PHOTOS_NPZ, _REPO),
+                          "photos": {k: list(v.shape)
+                                     for k, v in photos.items()}}))
+        return 0
     device = str(config_mod.resolve_device(args.device))
+    config_mod.full_fp32()
     images = heldout_images()
     missing = sorted({"grace_hopper", "sk_china", "sk_flower", "pg_camera",
                       "pg_background"} - set(images))

@@ -20,9 +20,15 @@ The port names that parameter ``codecs.0.entropymodel.plc_0.Conv_1.weight``.
 - ``bias``, GDN ``beta``/``gamma`` (reparametrized), lifting ``taps`` and
   gains ``nh``/``nl``, GroupNorm ``scale``, the CBAM head's 0-d
   ``res_weight``, and the entropy bottlenecks' ``matrix_i``, ``bias_i``,
-  ``factor_i`` and ``quantiles`` are copied raw.
+  ``factor_i`` and ``quantiles`` are copied raw; so are the restoration
+  nets' PReLU ``negative_slope`` and BatchNorm ``scale`` (params) and
+  running ``mean`` and ``var`` (flax's ``batch_stats`` collection, buffers
+  in the port).
 
-The rules key on module names, never on a leaf's rank.
+The rules key on module names, never on a leaf's rank. A restoration net's
+``variables`` (``params`` and ``batch_stats``) travel through
+:func:`state_dict_from_flax_variables` and
+:func:`flax_variables_from_state_dict`.
 
 A gradient tree has the parameter tree's shape, so the same functions carry
 gradients. :func:`flax_params_from_state_dict` is the inverse: a checkpoint
@@ -41,7 +47,9 @@ from torch import nn
 _SEGMENT = re.compile(r"\['([^']*)'\]")
 _RAW_LEAF = re.compile(
     r"bias|beta|gamma|taps|nh|nl|scale|res_weight|quantiles"
-    r"|(matrix|bias|factor)_\d+")
+    r"|negative_slope|mean|var|(matrix|bias|factor)_\d+")
+# leaves of flax's ``batch_stats`` collection (a BatchNorm's running stats)
+BATCH_STATS = ("mean", "var")
 SKIP_KEYS = ("__iteration__",)
 # port parameter names (dotted) of flax transposed convs (a
 # ``ConvTranspose_*`` module anywhere; BasicWavelet's ``inv_{i}_1``, a
@@ -187,3 +195,26 @@ def load_npz(path: str) -> Dict[str, np.ndarray]:
     """A params snapshot written by ``scripts/rd_sweep.py``."""
     with np.load(path) as data:
         return {k: data[k] for k in data.files if k not in SKIP_KEYS}
+
+
+def state_dict_from_flax_variables(variables: Mapping
+                                   ) -> Dict[str, torch.Tensor]:
+    """A flax ``variables`` dict (nested ``params`` and ``batch_stats``) ->
+    port ``state_dict`` entries, the running statistics as buffers."""
+    out: Dict[str, torch.Tensor] = {}
+    for collection in ("params", "batch_stats"):
+        out.update(state_dict_from_flax(
+            flatten_params(variables.get(collection, {}))))
+    return out
+
+
+def flax_variables_from_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict:
+    """Port ``state_dict`` -> a nested flax ``variables`` dict with numpy
+    leaves (inverse of :func:`state_dict_from_flax_variables`)."""
+    flat = flax_params_from_state_dict(sd)
+    split: Dict[str, Dict[str, np.ndarray]] = {"params": {},
+                                               "batch_stats": {}}
+    for key, value in flat.items():
+        leaf = _SEGMENT.findall(key)[-1]
+        split["batch_stats" if leaf in BATCH_STATS else "params"][key] = value
+    return {k: unflatten_params(v) for k, v in split.items()}

@@ -9,11 +9,14 @@ triggers a checkpoint save before it is raised again.
 The device is explicit: CUDA unless the caller passes ``device="cpu"``.
 ``test`` codes every test image into a real bitstream and back
 (``coding/codec_coder.py``: the transforms on the device, the entropy
-coding in host C++). ``train_postprocess`` (ROADMAP Queue A item 12), a
-mesh of more than one device and tiled coding (item 13) are not ported yet
-and raise ``NotImplementedError``. ``steps_per_call`` is accepted and
-ignored: it chains steps to hide a TPU's dispatch latency, and every step
-here is dispatched on its own.
+coding in host C++), in tiles (``coding/tiled_coder.py``) where
+``tile_size`` divides the image's height into more than one.
+``train_postprocess`` trains the restoration net on the frozen codec
+(``train/postprocess_loop.py``). A mesh of more than one device (ROADMAP
+Queue A item 13) is not ported yet and raises ``NotImplementedError``.
+``steps_per_call`` is accepted and ignored: it chains steps to hide a
+TPU's dispatch latency, and every step here is dispatched on its own.
+fp32 runs at full fp32 precision (``config.full_fp32``: TF32 off).
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import os
 import numpy as np
 import torch
 
-from ..config import Config, resolve_device
+from ..config import Config, full_fp32, resolve_device
 from ..models.codec import CodecWrapper
 from ..utils.heartbeat import Heartbeat
 from ..utils.profiling import DeviceTrace, PhaseTimers
@@ -45,6 +48,7 @@ class LiftingDWTAgent:
     def __init__(self, cfg: Config, device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        full_fp32()
         self.logger = setup_logging(cfg.log_dir)
         if int(np.prod(cfg.mesh_shape)) > 1:
             raise NotImplementedError(
@@ -219,13 +223,30 @@ class LiftingDWTAgent:
     def test(self):
         """Real encode and decode of every test image, one at a time, with
         the bitstream path; logs each image and the means. Returns
-        ``(mean PSNR, mean bpp)``."""
+        ``(mean PSNR, mean bpp)``. Where ``tile_size`` divides an image's
+        height into more than one tile, the image is coded in tiles
+        (``coding/tiled_coder.py``), as the JAX package's agent does."""
         from ..coding.codec_coder import CodecCoder
 
-        coder = CodecCoder(self.cfg, self.model, self.device)
+        cfg = self.cfg
+        coder = CodecCoder(cfg, self.model, self.device)
+        tiled = {}
+
+        def code(img: np.ndarray):
+            h = img.shape[1]
+            if cfg.tile_size and h > cfg.tile_size \
+                    and h % cfg.tile_size == 0:
+                n = h // cfg.tile_size
+                if n not in tiled:
+                    from ..coding.tiled_coder import TiledCodecCoder
+                    tiled[n] = TiledCodecCoder(cfg, self.model, n,
+                                               device=self.device)
+                return tiled[n].compress_decompress(img)
+            return coder.compress_decompress(img)
+
         psnrs, bpps = [], []
         for batch in self.data.test_batches():
-            res = coder.compress_decompress(np.asarray(batch))
+            res = code(np.asarray(batch))
             self.heartbeat.beat()
             psnrs.append(res.psnr)
             bpps.append(res.bpp)
@@ -243,9 +264,11 @@ class LiftingDWTAgent:
         return float(np.mean(psnrs)), float(np.mean(bpps))
 
     def train_postprocess(self):
-        raise NotImplementedError(
-            "mode 'train_postprocess' needs the postprocess nets, which are "
-            "not ported yet (ROADMAP Queue A item 12)")
+        """Train ``cfg.postprocess``'s restoration net on the frozen codec
+        (``train/postprocess_loop.py``); the net is left in
+        ``self.pp_model``, outside the checkpoint."""
+        from .postprocess_loop import train_postprocess
+        return train_postprocess(self)
 
     # ------------------------------------------------------------------
     def save_checkpoint(self, is_best: bool = False):

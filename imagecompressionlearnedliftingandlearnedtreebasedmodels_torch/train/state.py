@@ -1,6 +1,7 @@
 """Training state: optimizer, train and eval steps, host-side controllers.
 
-The entry points of the port. :func:`make_eval_step` serves (hard rounding,
+The entry points of the port (each turns TF32 off: ``config.full_fp32``).
+:func:`make_eval_step` serves (hard rounding,
 bits from the likelihoods, ``xhat`` clipped to [-0.5, 0.5], then
 ``rd_loss3``). :func:`make_train_step` takes one optimizer step on the
 noise-quantized surrogate. The state lives where PyTorch keeps it: in the
@@ -18,7 +19,7 @@ from typing import Callable, Optional, Tuple
 import torch
 from torch import nn
 
-from ..config import Config, resolve_device
+from ..config import Config, full_fp32, resolve_device
 from ..ops import color
 from .loss import RDLossOutput, rd_loss3
 
@@ -65,6 +66,7 @@ def make_train_step(cfg: Config, model: nn.Module,
     added to the loss; the returned terms are detached.
     """
     dev = resolve_device(device)
+    full_fp32()
     model.to(dev)
     loss_scale = 1.0 / max(cfg.grad_acc_iters, 1)
 
@@ -97,6 +99,7 @@ def make_eval_step(cfg: Config, model: nn.Module, device=None
     the clipped reconstruction in [-0.5, 0.5].
     """
     dev = resolve_device(device)
+    full_fp32()
     model.to(dev)
 
     @torch.inference_mode()

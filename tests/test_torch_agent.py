@@ -333,13 +333,28 @@ def test_agent_saves_on_a_crash(tmp_path):
 
 @pytest.mark.parametrize("mode,item", [("test", "item 13"),
                                        ("train_postprocess", "item 12")])
-def test_unported_modes_raise(tmp_path, mode, item):
-    """``train_postprocess`` is not ported; ``test`` is, but not its tiled
-    coding (a ``tile_size`` that divides the 64-pixel test images)."""
-    agent = ploop.LiftingDWTAgent(tiny_cfg(tmp_path, mode=mode, tile_size=16),
-                                  device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        agent.run()
+def test_unported_modes_raise(tmp_path, mode, item, monkeypatch):
+    """The two modes that raised until their ROADMAP items were ported now
+    run: ``test`` with a ``tile_size`` that divides the two 32-pixel test
+    images codes each image in two tiles (item 13's single-device part),
+    and ``train_postprocess`` trains the restoration net (item 12)."""
+    from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.coding import (
+        tiled_coder)
+    tiles = []
+    real = tiled_coder.TiledCodecCoder.compress_decompress
+    monkeypatch.setattr(tiled_coder.TiledCodecCoder, "compress_decompress",
+                        lambda self, x: tiles.append(self.n_tiles)
+                        or real(self, x))
+    cfg = tiny_cfg(tmp_path, mode=mode, tile_size=16, max_epoch=1,
+                   resnetlevel=1, postprocess="iwave", test_patch_size=32)
+    cfg.test_data = cfg.valid_data
+    agent = ploop.LiftingDWTAgent(cfg, device="cpu")
+    agent.run()
+    if mode == "test":
+        assert tiles == [2, 2]
+        assert len(agent.last_test_per_image) == 2
+    else:
+        assert not tiles and agent.pp_model.Conv_0.weight.grad is not None
 
 
 def test_cli_test_mode_codes_a_real_bitstream(tmp_path, monkeypatch, caplog):

@@ -48,15 +48,19 @@ def _card_shapes():
 def _plan_cases():
     """(b, h, w, cin, cout) of every launch the kernel serves: each 3x3 conv
     of the flagship's and the quincunx codec's B=8 512x768 eval steps and
-    B=8 256x256 train steps with its dx (Cin and Cout swapped), and the
-    card tests' cases, forward and dx."""
+    B=8 256x256 train steps with its dx (Cin and Cout swapped), every
+    restoration net's (DnCNN, iwave, IRCNN, DIDN, DUDnCNN) at those sizes,
+    and the card tests' cases, forward and dx."""
     cfg = config.flagship_config()
     qcfg = config.Config(**chip_smoke.QUINCUNX).validate()
+    pcfg = config.flagship_config(postprocess="iwave",
+                                  resnetlevel=chip_smoke.PP_RESNETLEVEL)
     cases = set()
     for size, b in (((chip_smoke.H, chip_smoke.W), chip_smoke.B),
                     ((chip_smoke.TRAIN_P,) * 2, chip_smoke.TRAIN_B)):
         for h, w, cin, cout in [*chip_smoke.conv_shapes(cfg, size),
-                                *chip_smoke.quincunx_conv_shapes(qcfg, size)]:
+                                *chip_smoke.quincunx_conv_shapes(qcfg, size),
+                                *chip_smoke.pp_kernel_shapes(pcfg, size)]:
             cases.update({(b, h, w, cin, cout), (b, h, w, cout, cin)})
     for b, h, w, cin, cout in _card_shapes():
         cases.update({(b, h, w, cin, cout), (b, h, w, cout, cin)})

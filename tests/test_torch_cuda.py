@@ -253,6 +253,13 @@ K1_SHAPES = [
     (1, 1, 40, 96, 192),    # H = 1: every tap row but one is padding
     (2, 7, 2, 32, 9),       # W = 2
     (3, 10, 24, 96, 243),   # B = 3, Cout 243; its dx 243 -> 96
+    # the restoration nets' shapes (iwave, DnCNN, DUDnCNN at full
+    # resolution; DIDN at 1/2, 1/4 and 1/8, and its 16 -> 3 tail)
+    (6, 64, 96, 3, 64),     # the head; its dx 64 -> 3
+    (6, 64, 96, 64, 64),    # the 64-wide body
+    (2, 64, 96, 16, 3),     # DIDN's tail after the pixel shuffle
+    (4, 32, 48, 128, 128),
+    (4, 16, 24, 256, 256),
 ]
 
 
@@ -575,3 +582,57 @@ def test_other_transforms_on_the_card(card, net):
         assert torch.isfinite(out.loss)
     finally:
         torch.backends.cudnn.allow_tf32 = True
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["DnCNN", "iwave", "IRCNN", "DIDN",
+                                  "DUDnCNN"])
+def test_restoration_nets_on_the_card(card, kind):
+    """Each restoration net, seeded, on the card against the CPU: the
+    train-mode forward (and its running statistics), then the eval forward;
+    every stride-1 undilated 3x3 conv on kernel 1."""
+    import copy
+    from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.models import (
+        postprocess)
+    cfg = config.flagship_config(postprocess=kind, resnetlevel=6)
+    cpu = postprocess.make_postprocess(cfg, torch.Generator().manual_seed(2))
+    gpu = copy.deepcopy(cpu).to(card)
+    n = sum(isinstance(m, postprocess.FastConv3x3) for m in cpu.modules())
+    if kind == "DIDN":
+        n += 5 * 9                   # the shared reconstruction block, 6 uses
+    x = torch.from_numpy(data.synthetic_natural_images(2, 32, seed=3)[0]
+                         ).permute(2, 0, 1)[None].float() / 255.0
+    with torch.no_grad():
+        for train in (True, False):
+            want = cpu(x, train)
+            conv.launches = 0
+            got = gpu(x.to(card), train).cpu()
+            torch.cuda.synchronize()
+            assert conv.launches == n
+            err = ((got - x) - (want - x)).abs().max() / (want - x).abs().max()
+            assert err.item() < TOL
+    for (name, a), b in zip(gpu.named_buffers(), cpu.buffers()):
+        assert (a.cpu() - b).abs().max() <= TOL * b.abs().max(), name
+
+
+@pytest.mark.cuda
+def test_entry_points_run_fp32_in_full_precision(card):
+    """With PyTorch's defaults on entry (cuDNN may round fp32 convs to
+    TF32), the coder and the eval step turn TF32 off, and the eval step on
+    the card then matches the CPU's to fp32 rounding."""
+    cfg = config.flagship_config(dwtlevels=2, lambda_=2000.0)
+    model = codec.CodecWrapper(cfg, generator=torch.Generator().manual_seed(0))
+    x = torch.from_numpy(data.synthetic_natural_images(1, 64, seed=1)[0]
+                         ).permute(2, 0, 1)[None].float() / 255.0
+    want, _ = state.make_eval_step(cfg, model, "cpu")(x)
+    for build in (lambda: codec_coder.CodecCoder(cfg, model, card),
+                  lambda: state.make_eval_step(cfg, model, card)):
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        build()
+        assert not torch.backends.cudnn.allow_tf32
+        assert not torch.backends.cuda.matmul.allow_tf32
+    got, _ = state.make_eval_step(cfg, model, card)(x)
+    for k in ("loss", "mse", "rate1", "rate2"):
+        assert abs(float(getattr(got, k)) - float(getattr(want, k))) \
+            <= 1e-4 * abs(float(getattr(want, k))), k

@@ -18,7 +18,11 @@ JAX package's fp32 CPU coding (bpp, PSNR a image) of the 19 dead-leaves
 images under both quincunx snapshots (``results/port_quincunx_targets.json``,
 ``chip_smoke.py``'s ``quincunx_bitstream`` targets) and of the 5
 photographs under those and the lambda=2000 flagship snapshot
-(``results/port_photo_targets.json``); a few minutes.
+(``results/port_photo_targets.json``); a few minutes. With
+``--write-targets flagship_lam6000`` it writes the JAX package's coding of
+all 24 held-out images under the lambda=6000 flagship snapshot
+(``results/port_flagship6000_targets.json``, ``chip_smoke.py``'s
+``bitstream`` targets for that snapshot) and nothing else.
 """
 
 import json
@@ -57,6 +61,8 @@ RESULTS = os.path.join(ROOT, "results")
 TARGETS = os.path.join(RESULTS, "port_quincunx_targets.json")
 PHOTO_TARGETS = os.path.join(RESULTS, rd_heldout.PHOTO_TARGETS)
 HELDOUT = os.path.join(RESULTS, "port_rd_heldout.json")
+FLAGSHIP6000_TARGETS = os.path.join(RESULTS,
+                                    "port_flagship6000_targets.json")
 QUINCUNX_POINTS = ("quincunx_lam400", "quincunx_lam1600")
 PHOTOS = ("grace_hopper", "pg_background", "pg_camera", "sk_china",
           "sk_flower")
@@ -144,6 +150,13 @@ def test_targets_files_list_their_images():
     assert sorted(p["points"]) == sorted(rd_heldout.POINTS)
     for rows in p["points"].values():
         assert [r["image"] for r in rows["per_image"]] == list(PHOTOS)
+    with open(FLAGSHIP6000_TARGETS) as fh:
+        f = json.load(fh)
+    assert f["command"].endswith("--write-targets flagship_lam6000")
+    with open(os.path.join(RESULTS, "rd_flagship.json")) as fh:
+        eval_set = [n[:-4] for n in sorted(json.load(fh)["eval_set"])]
+    assert [r["image"] for r in f["points"]["flagship_lam6000"][
+        "per_image"]] == eval_set == f["images"]
 
 
 def test_heldout_record_holds_every_image_to_the_jax_package():
@@ -201,8 +214,8 @@ def test_cli_trains_resumes_and_codes_the_quincunx_codec(tmp_path,
                for k in saved["model"])
 
 
-def _code(name, images):
-    coder = jax_coder(name)
+def _code(name, images, coder=None):
+    coder = coder or jax_coder(name)
     rows = []
     for img_name, img in images.items():
         t0 = time.perf_counter()
@@ -252,9 +265,42 @@ def write_targets():
             fh.write("\n")
 
 
+def write_flagship6000_targets(path=FLAGSHIP6000_TARGETS):
+    """The JAX package's real bitstream, fp32, one image at a time, of all
+    24 held-out images under the lambda=6000 flagship snapshot."""
+    jcfg = jconfig.Config(**dict(rd_heldout.FLAGSHIP, lambda_=6000.0,
+                                 dtype="float32"))
+    params = jax.tree_util.tree_map(
+        lambda a: jnp.asarray(a, jnp.float32),
+        weights.unflatten_params(weights.load_npz(
+            os.path.join(RESULTS, "ckpt_snapshots", "flagship_lam6000.npz"))))
+    images = rd_heldout.heldout_images()
+    t0 = time.perf_counter()
+    point = _code("flagship_lam6000", images,
+                  jcc.CodecCoder(jcfg, JCodec(jcfg), params))
+    out = {"what": "the JAX package's real bitstream (CodecCoder."
+                   "compress_decompress) of the held-out set under the "
+                   "lambda=6000 flagship snapshot in float32, one image at a "
+                   "time",
+           "images": list(images),
+           "command": "python tests/test_torch_quincunx_coding.py "
+                      "--write-targets flagship_lam6000",
+           "host": "CPU, JAX's CPU backend; the C++ coding built by the JAX "
+                   "package",
+           "ctx_fp": jnative.ctx_fingerprint(),
+           "seconds": time.perf_counter() - t0,
+           "points": {"flagship_lam6000": point}}
+    with open(path, "w") as fh:
+        json.dump(out, fh, indent=1)
+        fh.write("\n")
+
+
 if __name__ == "__main__":
-    if sys.argv[1:] != ["--write-targets"]:
-        sys.exit("usage: python tests/test_torch_quincunx_coding.py "
-                 "--write-targets")
     jax.config.update("jax_platforms", "cpu")
-    write_targets()
+    if sys.argv[1:] == ["--write-targets"]:
+        write_targets()
+    elif sys.argv[1:] == ["--write-targets", "flagship_lam6000"]:
+        write_flagship6000_targets()
+    else:
+        sys.exit("usage: python tests/test_torch_quincunx_coding.py "
+                 "--write-targets [flagship_lam6000]")
