@@ -101,7 +101,7 @@ path's), tiled coding and the entry points' fp32:
 13c. pp_main  the restored eval step at B=8 512x768 (ms, MP/s, 153 launches
            a step), the postprocess train step at B=8 256x256 (ms, 153
            launches and 14 dx a step, peak memory), one step profiled
-           (``pp_train_profile``), then 200 steps from the seeded init: the
+           (``pp_train_profile``), then 100 steps from the seeded init: the
            held-out batch's restored MSE must fall;
 13d. pp_agent  the CLI's ``mode: train_postprocess`` on a checkpoint of
            the lambda=2000 snapshot (2 epochs of 2 steps, validation with
@@ -110,7 +110,7 @@ path's), tiled coding and the entry points' fp32:
            with ``tile_size`` 256 (4 tiles), held to the JAX package's CPU
            tiled coding (``results/port_tiled_targets.json``) at 0.5 % bpp
            and 0.02 dB; the same image's tiles one after another against
-           the tile pool (the same bytes); a 2048x2048 image with
+           the tile pool (the same bytes); the image again with
            ``tile_size`` 512 on the pool: s/image, MP/s, each tile's
            card/host split, peak memory;
 13f. agent_tf32_default  the CLI's ``mode: test`` entered with PyTorch's
@@ -118,7 +118,37 @@ path's), tiled coding and the entry points' fp32:
            dead-leaves images with the lambda=2000 snapshot against the
            ``bitstream`` gates, the flags off after the run; then onlyEZWT's
            and ZTBlock's coders round trips with TF32 forced on (do they
-           still decode bit for bit?).
+           still decode bit for bit?);
+13g. fast_conv_forms  the JAX package's matmul conv forms at every shape
+           of the bf16 eval step (B=8 512x768) that takes one: the cgp
+           stacks' ``grouped_conv1x1_einsum`` and the csc conv's
+           ``grouped_conv_taps`` (fp32 sums of bf16 operands, 1e-4 of max
+           |plain|), the P/U convs' ``conv5x5_s2d`` (its bf16 output within
+           half a bf16 step), each with its time, the plain version's,
+           cuDNN's bf16 conv and the bound; the grouped forms at the fp32
+           step's shapes beside cuDNN's fp32 grouped convs (recorded only);
+           the bf16 eval and train steps with today's forms and with the
+           earlier cuDNN grouped and 5x5 convs, in turns;
+13h. dp_train_gloo, dp_train_nccl  the fp32 flagship train step (lambda=2000
+           snapshot, B=8 256x256) through ``make_dp_train_step`` on two
+           ranks sharing the card (gloo: NCCL refuses two ranks on one
+           GPU) and on one NCCL rank, each rank against the single-device
+           step (RD terms 1e-4, gradients 1e-2 a tensor, 1e-3 on the L2,
+           cuDNN deterministic), the ranks' parameters equal to the bit
+           after 3 steps, the shardmap step timed, kernel 1's launches
+           (forward and dx) counted in each rank;
+13i. halo_eval_flagship, halo_eval_cdf97  one 2048x2048 image H-sharded
+           over two gloo ranks through ``make_halo_eval_step``: RD terms
+           1e-4 and xhat's mean |d| 1e-5 of the single-device eval step;
+           ms and peak memory per rank, kernel 1's and the ladder
+           kernels' launches;
+13j. tiled_mesh  ``tiled_forward`` of a 1024x1024 image in 4 tiles over
+           two ranks against one device's;
+13k. agent_mesh  the CLI with ``mesh_shape: [2]`` (2 epochs of 2 steps),
+           resumed as a one-device run, then ``mode: test`` on the
+           ``AGENT_TEST_IMAGES`` images;
+13l. supervise  the CLI under ``--supervise`` (CDF97, one epoch) to exit 0,
+           its heartbeat file's age read after it.
 
 Then the CDF 9/7 + factorized codec (``configs/cdf97_factorized.json`` at
 full width: joint RGB, 4 levels, pointwise AEs, factorized bottlenecks,
@@ -181,7 +211,7 @@ port's seeded init (no trained weights of these models exist). For each:
            19 dead-leaves images: lossless, each image's real rate within 3 % of its
            likelihood rate under the coding path's contexts (the eval
            step's rate beside it: ZTBlock's eval forward quantizes its
-           contexts otherwise), two images coded on the CPU too (0.5 %
+           contexts otherwise), one image coded on the CPU too (0.5 %
            bpp, 0.02 dB), s/image with the card/host split, one round trip
            profiled; 156 kernel-1 launches an image for onlyEZWT (the AEs'
            120, the plc's 18 in the encoder's chain and 18 in the decoder's
@@ -287,7 +317,7 @@ FLAGSHIP_POINTS = {
                               "port_flagship6000_targets.json"),))}
 BITSTREAM_IMAGES = (19, 256, 9999)  # synthetic_natural_images(n, size, seed)
 TREE_BITSTREAM_IMAGES = 8        # the first 8 of those, for the tree models
-AGENT_TEST_IMAGES = (4, 128, 9999)  # every agent's mode: test (n, size, seed)
+AGENT_TEST_IMAGES = (2, 128, 9999)  # every agent's mode: test (n, size, seed)
 KODAK_IMAGES = 2                 # bitstream_bf16's timed 512x768 images
 CDF97_BITSTREAM_IMAGES = 4       # 256x256
 # the tree-based entropy models: (phase prefix, entropy_layer, Adam steps
@@ -299,7 +329,7 @@ TREE_SEED = 0                    # the entropy models' init
 TREE_TRAIN_STEPS = 2             # timed bf16 train steps of each
 TREE_FIT_LR = 1e-3               # the fit: Adam over the snapshot
 TREE_FIT_BATCH = (8, 128)        # transform's subbands of 8 seeded patches
-TREE_CPU_IMAGES = 2              # bitstream images also coded on the CPU
+TREE_CPU_IMAGES = 1              # bitstream images also coded on the CPU
 TREE_AGENT = dict(AGENT, steps_per_epoch=2, max_epoch=1, patch_size=64)
 CODING_MANY = 8                  # images of phase coding_many (256x256)
 # the quincunx integer-lifting codec: scripts/rd_sweep.py's preset (its
@@ -326,12 +356,12 @@ PP_KINDS = ("DnCNN", "iwave", "IRCNN", "DIDN", "DUDnCNN")
 PP_RESNETLEVEL = 6
 PP_PARITY = (2, 64)
 PP_TRAIN_STEPS = 5
-PP_CONVERGE = (200, 2, 64)
+PP_CONVERGE = (100, 2, 64)
 PP_AGENT = dict(AGENT, postprocess="iwave", resnetlevel=PP_RESNETLEVEL,
                 steps_per_epoch=2)
 # tiled coding: (side, tile_size, seed) of the image held to the JAX
 # package's CPU tiled coding, then of the timed one
-TILED = ((1024, 256, 3), (2048, 512, 3))
+TILED = ((1024, 256, 3), (1024, 512, 3))
 TILED_TARGETS = os.path.join(HERE, "results", "port_tiled_targets.json")
 DEV = "cuda"
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, fp32 CUDA
@@ -1140,13 +1170,13 @@ def phase_main(torch, np, pkg, counts):
 
 def phase_profile(torch, run_step, step_ms, name="profile"):
     """One step under torch.profiler: device busy ms (the sum of the
-    device-side events' times; host-side ops also carry the device time of
-    the kernels they launch, so they are left out) and the fifteen largest
-    device-side events."""
+    device-side events' times) and the fifteen largest device-side events.
+    Only the device's activity is recorded: a host-bound step's host ops
+    run to hundreds of thousands of events, whose averaging took longer
+    than the step itself."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run_step()
         torch.cuda.synchronize()
     events = [(e.key, e.self_device_time_total / 1e3, e.count)
@@ -3416,7 +3446,7 @@ def phase_tiled_bitstream(torch, np, pkg, counts):
     ``tile_size`` 256 (the agent codes it in 4 tiles on the pool), held to
     the JAX package's CPU tiled coding (``results/port_tiled_targets.json``);
     the same image through ``TiledCodecCoder`` with the tiles one after
-    another, then on the pool (the same bytes); then a 2048x2048 image with
+    another, then on the pool (the same bytes); then the image again with
     ``tile_size`` 512 on the pool: s/image, MP/s, each tile's card/host
     split, peak memory."""
     with open(TILED_TARGETS) as fh:
@@ -3823,6 +3853,517 @@ def kernel_entries(conv, v2, lift97, rows, bwd_rows, v2_rows, lift_rows,
         "train_step_dx_library_ms": per(v2_train, "dx_library_ms")}]
 
 
+# --- scale-out and the matmul conv forms (phases fast_conv_forms to
+# supervise) ------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def earlier_conv_forms(pkg):
+    """The port's conv forms before the JAX package's matmul forms came in:
+    every grouped 1x1 and masked grouped conv a cuDNN bf16 conv at every
+    size, every lifting P/U 5x5 conv one cuDNN bf16 5x5 conv, its output
+    cast to fp32 before the fp32 bias (the earlier forms' costs, timed
+    against today's)."""
+    fc, mc, pb = pkg.fast_conv, pkg.masked_conv, pkg.lifting.PBlock
+    saved = (fc.large_plane, mc.large_plane, pb._forward_s2d)
+
+    def block(self, x):
+        def conv(c, t):
+            return fc._add_bias(c._conv(t, c.weight).float(), c.bias)
+
+        c0, c1, c2, c3 = self.convs
+        out_res = conv(c0, x)
+        t = torch_tanh(out_res) if self.nonlinear else out_res
+        t = conv(c1, t)
+        if self.nonlinear:
+            t = torch_tanh(t)
+        return conv(c3, conv(c2, t) + out_res)
+
+    import torch
+    torch_tanh = torch.tanh
+    fc.large_plane = mc.large_plane = lambda x: False
+    pb._forward_s2d = block
+    try:
+        yield
+    finally:
+        fc.large_plane, mc.large_plane, pb._forward_s2d = saved
+
+
+def form_shapes(cfg, b, h, w):
+    """Every distinct (form, x NCHW, weight, groups) the eval step gives a
+    matmul form, with its calls a step: the cgp layers and the csc conv of
+    each finer level whose plane has 4096 pixels or more, the P/U convs of
+    every level's row and column passes (lifting runs in the analysis and
+    again in the synthesis)."""
+    c, so = cfg.clrch, 3 * cfg.clrch
+    planes = 3 if c == 1 else 1
+    wide, hid = so * 81, cfg.depth_scale * 8 * c
+    fused = 2 * wide
+    rows = []
+    for lv in range(cfg.dwtlevels - 1):
+        hl, wl = h >> (lv + 1), w >> (lv + 1)
+        if hl * wl < 4096:
+            continue
+        for cin, cout in ((fused, fused), (fused, fused // 3),
+                          (fused // 3, fused // 9), (fused // 9, 2 * so)):
+            rows.append(("grouped_conv1x1_einsum", (b, cin, hl, wl),
+                         (cout, cin // so, 1, 1), so, planes))
+        rows.append(("grouped_conv_taps", (b, so, hl, wl), (wide, 1, 5, 5),
+                     so, planes))
+    per_pass = 2 * cfg.num_lifting_perlayer * 2 * planes   # P and U, 2 ways
+    for lv in range(cfg.dwtlevels):
+        hl, wl = h >> lv, w >> lv
+        for bb, rh, rw in ((b, hl // 2, wl), (2 * b, wl // 2, hl // 2)):
+            for cin, cout, n in ((c, hid, 1), (hid, hid, 2), (hid, c, 1)):
+                rows.append(("conv5x5_s2d", (bb, cin, rh, rw),
+                             (cout, cin, 5, 5), 1, n * per_pass))
+    return rows
+
+
+def phase_fast_conv_forms(torch, F, np, pkg):
+    """Each matmul form against its plain version at every bf16 shape of the
+    flagship eval step (fp32 sums of the same bf16-rounded operands: 1e-4
+    of max |plain|; ``conv5x5_s2d`` rounds its output to bf16, so half a
+    bf16 step, 2^-8 of |y| at most), with its time, cuDNN's bf16 conv (the port's earlier form
+    and the library call) and the bound; then the grouped forms at the
+    fp32 step's shapes against cuDNN's fp32 grouped convs (recorded only:
+    fp32 configs keep ``F.conv2d``); then the bf16 eval and train steps
+    with today's forms and with the earlier ones, in turns."""
+    fc = pkg.fast_conv
+    cfg = pkg.config.flagship_config(dtype="bfloat16")
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    rows, fp32_rows = [], []
+    for name, xs, ws, groups, per_step in form_shapes(cfg, B, H, W):
+        x = torch.randn(xs, device=DEV, generator=gen)
+        wt = torch.randn(ws, device=DEV, generator=gen) / math.sqrt(
+            ws[1] * ws[2] * ws[3])
+        bias = torch.randn(ws[0], device=DEV, generator=gen) * 0.1
+        pad = ws[2] // 2
+        if name == "grouped_conv_taps":
+            wt = wt * torch.from_numpy(pkg.masked_conv.causal_mask(
+                (5, 5), "A")).to(DEV)
+
+        def form(dt=torch.bfloat16):
+            if name == "conv5x5_s2d":
+                return fc.conv5x5_s2d(x, wt, bias, dt)
+            return getattr(fc, name)(x, wt, bias, groups, dt)
+
+        def plain():
+            return F.conv2d(x.bfloat16().float(), wt.bfloat16().float(), bias,
+                            padding=pad, groups=groups)
+
+        def library(dt=torch.bfloat16):
+            return F.conv2d(x.to(dt), wt.to(dt), bias.to(dt), padding=pad,
+                            groups=groups)
+
+        got, want = form(), plain()
+        err = rel_err(got, want)
+        tol = 2.0 ** -8 if name == "conv5x5_s2d" else KERNEL_TOL
+        n_out = xs[0] * ws[0] * xs[2] * xs[3]
+        flop = 2.0 * n_out * ws[1] * ws[2] * ws[3]
+        nbytes = 4.0 * (x.numel() + wt.numel() + bias.numel() + n_out)
+        bound = max(nbytes / PEAK_BYTES, flop / PEAK_FLOPS["bfloat16"]) * 1e3
+        row = {"form": name, "x": list(xs), "weight": list(ws),
+               "groups": groups, "per_step": per_step, "max_abs_err": err,
+               "tol": tol, "ms": time_ms(form, torch),
+               "plain_ms": time_ms(plain, torch),
+               "library_ms": time_ms(library, torch), "bound_ms": bound,
+               "bound_by": "bytes" if nbytes / PEAK_BYTES
+               > flop / PEAK_FLOPS["bfloat16"] else "operations"}
+        rows.append(row)
+        if not err <= tol:
+            raise AssertionError(f"{name} at {xs}: {err} > {tol}")
+        if name != "conv5x5_s2d":
+            with tf32_off(torch):
+                fp32_rows.append({
+                    "form": name, "x": list(xs), "weight": list(ws),
+                    "per_step": per_step,
+                    "ms": time_ms(lambda: form(torch.float32), torch),
+                    "library_ms": time_ms(lambda: library(torch.float32),
+                                          torch),
+                    "max_abs_err": rel_err(form(torch.float32), F.conv2d(
+                        x, wt, bias, padding=pad, groups=groups))})
+        del x, wt, bias, got, want
+
+    def per_step(rs, key):
+        return sum(r[key] * r["per_step"] for r in rs)
+
+    steps = {}
+    batch = eval_batch(torch, np, pkg)
+    model = load_model(cfg, pkg)
+    eval_step = pkg.state.make_eval_step(cfg, model, DEV)
+    tcfg = pkg.config.flagship_config(dtype="bfloat16", lambda_=2000.0,
+                                      learning_rate=TRAIN_LR)
+    tmodel = load_model(tcfg, pkg)
+    train_step = pkg.state.make_train_step(
+        tcfg, tmodel, pkg.state.make_optimizer(tcfg, tmodel), DEV)
+    tbatch = train_batch(torch, np, pkg, TRAIN_B, TRAIN_P, seed=1).to(DEV)
+    tgen = torch.Generator(device=DEV).manual_seed(0)
+    for which in ("after", "before", "before", "after"):
+        ctx = earlier_conv_forms(pkg) if which == "before" \
+            else contextlib.nullcontext()
+        with ctx:
+            eval_step(batch)
+            train_step(tbatch, tgen, TRAIN_LR, 1.0)
+            torch.cuda.synchronize()
+            steps.setdefault(f"main_{which}_ms", []).extend(timed_steps(
+                torch, lambda: eval_step(batch), 2))
+            steps.setdefault(f"train_{which}_ms", []).extend(timed_steps(
+                torch, lambda: train_step(tbatch, tgen, TRAIN_LR, 1.0), 2))
+    res = {"phase": "fast_conv_forms", "dtype": "bfloat16",
+           "step": [B, 3, H, W], "rows": rows,
+           "per_step": {k: per_step(rows, k) for k in
+                        ("ms", "plain_ms", "library_ms", "bound_ms")},
+           "fp32_rows": fp32_rows,
+           "fp32_per_step": {k: per_step(fp32_rows, k)
+                             for k in ("ms", "library_ms")},
+           **{k: sum(v) / len(v) for k, v in steps.items()},
+           "step_ms_all": steps}
+    emit(res)
+    return res
+
+
+MESH_TRAIN_SEED = 7        # the dp_train noise generator, on every rank
+MESH_TRAIN_STEPS = 3       # dp_train: steps after which the ranks agree
+MESH_TIMED_STEPS = 2       # timed steps of the shardmap form
+HALO_SIZE = 2048           # halo_eval's one image
+TILED_MESH = (1024, 4)     # tiled_mesh: image side, tiles
+AGENT_MESH = dict(AGENT, steps_per_epoch=2, max_epoch=2)
+
+
+def halo_models(torch, pkg):
+    """(name, config, model) of halo_eval: the lambda=2000 flagship in fp32
+    and CDF97 (seeded)."""
+    fcfg = pkg.config.flagship_config(lambda_=2000.0)
+    ccfg = cdf97_config(pkg)
+    return (("flagship", fcfg, load_model(fcfg, pkg)),
+            ("cdf97", ccfg, cdf97_model(torch, pkg, ccfg)))
+
+
+def mesh_inputs(torch, np, pkg):
+    """The scale-out phases' inputs, made the same way in every process."""
+    halo = pkg.data.synthetic_natural_images(1, HALO_SIZE, seed=21)[0]
+    tiled = pkg.data.synthetic_natural_images(1, TILED_MESH[0], seed=22)[0]
+    return (train_batch(torch, np, pkg, TRAIN_B, TRAIN_P, seed=3),
+            torch.from_numpy(halo).permute(2, 0, 1)[None].float() / 255.0,
+            tiled[None].astype(np.float32) / 255.0)
+
+
+def scale_out_refs(torch, np, pkg, outdir):
+    """The single-device results the ranks hold themselves to, written to
+    ``outdir``: one fp32 flagship train step (its RD terms and gradients),
+    each halo model's eval step at HALO_SIZE, and ``tiled_forward``."""
+    tbatch, himg, timg = mesh_inputs(torch, np, pkg)
+    cfg = pkg.config.flagship_config(lambda_=2000.0, learning_rate=TRAIN_LR)
+    model = load_model(cfg, pkg)
+    step = pkg.state.make_train_step(
+        cfg, model, pkg.state.make_optimizer(cfg, model), DEV)
+    out, _ = step(tbatch, torch.Generator(device=DEV).manual_seed(
+        MESH_TRAIN_SEED), TRAIN_LR, 1.0)
+    refs = {"train": ([float(v) for v in out],
+                      {k: p.grad.cpu() for k, p in model.named_parameters()})}
+    del model, step
+    for name, hcfg, hmodel in halo_models(torch, pkg):
+        out, xhat = pkg.state.make_eval_step(hcfg, hmodel, DEV)(himg)
+        refs[name] = ([float(v) for v in out], xhat.cpu())
+        del hmodel
+    fcfg = pkg.config.flagship_config(lambda_=2000.0)
+    refs["tiled"] = pkg.tiling.tiled_forward(fcfg, load_model(fcfg, pkg),
+                                             timg, TILED_MESH[1], DEV)
+    torch.save(refs, os.path.join(outdir, "refs.pt"))
+    torch.cuda.empty_cache()
+
+
+def mesh_rank(mesh, outdir, phases):
+    """One rank of the scale-out phases (spawned by ``phase_scale_out``):
+    runs ``phases`` and writes ``<outdir>/<phase>_<backend>_rank<r>.json``.
+    Every kernel launch count is this process's, set to 0 before the path
+    and read after it."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, HERE)
+    from types import SimpleNamespace
+    from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch import (
+        config)
+    from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.models import (
+        codec)
+    from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.ops import (
+        conv3x3_halo as conv, conv_v2 as v2, lift97)
+    from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.parallel import (
+        dp, mesh as mesh_lib, tiling)
+    from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.tools import (
+        weights)
+    from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.train import (
+        data, state)
+    pkg = SimpleNamespace(config=config, codec=codec, weights=weights,
+                          data=data, state=state, tiling=tiling)
+    counts = Counts(conv, v2, lift97)
+    # the gradient gates' reading repeats with cuDNN's deterministic
+    # algorithms (the single-device reference takes them too)
+    torch.backends.cudnn.deterministic = True
+    refs = torch.load(os.path.join(outdir, "refs.pt"), weights_only=False)
+    tbatch, himg, timg = mesh_inputs(torch, np, pkg)
+    tag = f"{mesh.backend}_rank{mesh.rank}"
+
+    def write(name, obj):
+        with open(os.path.join(outdir, f"{name}_{tag}.json"), "w") as fh:
+            json.dump(obj, fh)
+
+    if "dp_train" in phases:
+        cfg = pkg.config.flagship_config(lambda_=2000.0,
+                                         learning_rate=TRAIN_LR)
+        model = load_model(cfg, pkg)
+        opt = pkg.state.make_optimizer(cfg, model)
+        step, shard_state = dp.make_dp_train_step(cfg, model, opt, mesh)
+        shard_state()
+        gen = torch.Generator(device=mesh.device).manual_seed(MESH_TRAIN_SEED)
+        counts.reset()
+        out, _ = step(tbatch, gen, TRAIN_LR, 1.0)
+        torch.cuda.synchronize()
+        launches = counts.read()
+        want_terms, want_grads = refs["train"]
+        gaps, l2_gap, l2 = {}, 0.0, 0.0
+        for k, p in model.named_parameters():
+            g, w = p.grad.cpu(), want_grads[k]
+            gaps[k] = float((g - w).abs().max()) / max(float(w.abs().max()),
+                                                       1e-30)
+            l2_gap += float(((g - w) ** 2).sum())
+            l2 += float((w ** 2).sum())
+        for _ in range(MESH_TRAIN_STEPS - 1):
+            step(tbatch, gen, TRAIN_LR, 1.0)
+        flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+        parts = mesh_lib.all_gather(mesh, flat)
+        same = all(torch.equal(parts[0], p) for p in parts)
+        sm_step, _ = dp.make_shardmap_train_step(cfg, model, opt, mesh)
+        sgen = dp.rank_generator(MESH_TRAIN_SEED, mesh)
+        sm_step(tbatch, sgen, TRAIN_LR, 1.0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counts.reset()
+        ms = timed_steps(torch, lambda: sm_step(tbatch, sgen, TRAIN_LR, 1.0),
+                         MESH_TIMED_STEPS)
+        write("dp_train", {
+            "terms": [float(v) for v in out], "want_terms": want_terms,
+            "worst_grad": max(gaps, key=gaps.get),
+            "worst_grad_rel_err": max(gaps.values()),
+            "grad_l2_rel_err": math.sqrt(l2_gap / l2),
+            "params_equal_after_steps": same, "launches": launches,
+            "shardmap_ms_per_step": sum(ms) / len(ms),
+            "shardmap_ms_all": ms, "shardmap_launches": counts.read(),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+        del model, opt, step, sm_step
+        torch.cuda.empty_cache()
+
+    if "halo_eval" in phases:
+        for name, cfg, model in halo_models(torch, pkg):
+            step = pkg.tiling.make_halo_eval_step(cfg, model, mesh)
+            step(himg)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            counts.reset()
+            t0 = time.perf_counter()
+            out, xhat = step(himg)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            launches = counts.read()
+            want_terms, want_xhat = refs[name]
+            rows = xhat.shape[2]
+            d = (xhat.cpu() - want_xhat[:, :, mesh.rank * rows:
+                                       (mesh.rank + 1) * rows]).abs()
+            write(f"halo_{name}", {
+                "terms": [float(v) for v in out], "want_terms": want_terms,
+                "xhat_mean_abs_err": float(d.mean()),
+                "xhat_max_abs_err": float(d.max()), "ms": ms,
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "launches": launches})
+            del model, step
+            torch.cuda.empty_cache()
+
+    if "tiled_mesh" in phases:
+        cfg = pkg.config.flagship_config(lambda_=2000.0)
+        model = load_model(cfg, pkg)
+        counts.reset()
+        t0 = time.perf_counter()
+        got = pkg.tiling.tiled_forward(cfg, model, timg, TILED_MESH[1],
+                                       mesh=mesh)
+        ms = (time.perf_counter() - t0) * 1e3
+        d = np.abs(got - refs["tiled"])
+        write("tiled_mesh", {"xhat_mean_abs_err": float(d.mean()),
+                             "xhat_max_abs_err": float(d.max()), "ms": ms,
+                             "launches": counts.read()})
+
+
+def read_ranks(outdir, name, backend, n):
+    out = []
+    for r in range(n):
+        with open(os.path.join(outdir, f"{name}_{backend}_rank{r}.json")) \
+                as fh:
+            out.append(json.load(fh))
+    return out
+
+
+def terms_rel_err(rank):
+    return max(abs(a - b) / abs(b) for a, b in zip(rank["terms"],
+                                                   rank["want_terms"]))
+
+
+def phase_scale_out(torch, np, pkg, card):
+    """dp_train, halo_eval and tiled_mesh: two ranks sharing the card over
+    gloo (NCCL refuses two ranks on one GPU), and dp_train again on one
+    rank over NCCL; each rank held to the single-device results."""
+    res = {}
+    with tempfile.TemporaryDirectory() as outdir:
+        t0 = time.perf_counter()
+        with tf32_off(torch, deterministic=True):
+            scale_out_refs(torch, np, pkg, outdir)
+        refs_s = time.perf_counter() - t0
+        runs = (("gloo", 2, ("dp_train", "halo_eval", "tiled_mesh")),
+                ("nccl", 1, ("dp_train",)))
+        seconds = {}
+        dev_type = torch.device(DEV).type
+        for backend, n, phases in runs:
+            t0 = time.perf_counter()
+            pkg.mesh.spawn(mesh_rank, n, dev_type, (outdir, phases))
+            seconds[backend] = time.perf_counter() - t0
+            if pkg.mesh.choose_backend(n, dev_type) != backend:
+                raise AssertionError(f"{n} rank(s) on this machine would "
+                                     f"not run {backend}")
+        for backend, n, _ in runs:
+            ranks = read_ranks(outdir, "dp_train", backend, n)
+            name = f"dp_train_{backend}"
+            res[name] = {"phase": name, "ranks": n, "backend": backend,
+                         "card": card, "batch": [TRAIN_B, 3, TRAIN_P,
+                                                 TRAIN_P],
+                         "dtype": "float32", "seconds": seconds[backend],
+                         "per_rank": ranks}
+            emit(res[name])
+            for r in ranks:
+                if not (terms_rel_err(r) <= PARITY_RTOL
+                        and r["worst_grad_rel_err"] <= GRAD_TOL
+                        and r["grad_l2_rel_err"] <= GRAD_L2_TOL
+                        and r["params_equal_after_steps"]):
+                    raise AssertionError(f"{name}: {r}")
+                if r["launches"]["conv3x3_halo"] == 0 \
+                        or r["launches"]["conv3x3_halo_dx"] == 0:
+                    raise AssertionError(f"{name}: kernel 1 not launched")
+        for model in ("flagship", "cdf97"):
+            ranks = read_ranks(outdir, f"halo_{model}", "gloo", 2)
+            name = f"halo_eval_{model}"
+            res[name] = {"phase": name, "ranks": 2, "backend": "gloo",
+                         "image": [1, 3, HALO_SIZE, HALO_SIZE],
+                         "dtype": "float32", "per_rank": ranks,
+                         "refs_seconds": refs_s}
+            emit(res[name])
+            kernels = ("conv3x3_halo",) if model == "flagship" \
+                else ("lift97", "ilift97")
+            for r in ranks:
+                if not (terms_rel_err(r) <= PARITY_RTOL
+                        and r["xhat_mean_abs_err"] <= XHAT_MEAN_TOL
+                        and r["xhat_max_abs_err"] <= XHAT_MAX_TOL):
+                    raise AssertionError(f"{name}: {r}")
+                if not all(r["launches"][k] > 0 for k in kernels):
+                    raise AssertionError(f"{name}: {kernels} not launched")
+        ranks = read_ranks(outdir, "tiled_mesh", "gloo", 2)
+        res["tiled_mesh"] = {"phase": "tiled_mesh", "ranks": 2,
+                             "image": [1, 3, TILED_MESH[0], TILED_MESH[0]],
+                             "tiles": TILED_MESH[1], "per_rank": ranks}
+        emit(res["tiled_mesh"])
+        for r in ranks:
+            if not (r["xhat_mean_abs_err"] <= XHAT_MEAN_TOL
+                    and r["xhat_max_abs_err"] <= XHAT_MAX_TOL
+                    and r["launches"]["conv3x3_halo"] > 0):
+                raise AssertionError(f"tiled_mesh: {r}")
+    return res
+
+
+def phase_agent_mesh(torch, pkg, counts):
+    """The CLI with ``mesh_shape: [2]`` (two gloo ranks sharing the card,
+    2 epochs of 2 steps), resumed as a single-device run (``mesh_shape:
+    [1]``) from rank 0's checkpoint, then ``mode: test`` on the
+    ``AGENT_TEST_IMAGES`` images with the agent phases' gates."""
+    with open(CONFIG) as fh:
+        raw = json.load(fh)
+    raw.update(AGENT_MESH, exp_name="smoke_agent_mesh")
+    steps, epochs = raw["steps_per_epoch"], raw["max_epoch"]
+    with tempfile.TemporaryDirectory() as tmp, working_dir(tmp):
+        ckpt_dir = os.path.join("experiments", raw["exp_name"], "checkpoints")
+        seconds, got = [], []
+        for argv, mesh_shape in (([], [2]), (["--resume-training"], [1])):
+            with open("agent.json", "w") as fh:
+                json.dump(dict(raw, mesh_shape=mesh_shape), fh)
+            t0 = time.perf_counter()
+            if pkg.cli.main(argv + ["agent.json"]) != 0:
+                raise AssertionError("the CLI returned non-zero")
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            saved = pkg.checkpoint.load_checkpoint(ckpt_dir,
+                                                   map_location="cpu")
+            if any(k.startswith("module.") for k in saved["model"]):
+                raise AssertionError("a mesh checkpoint's keys are prefixed")
+            got.append((saved["epoch"], saved["iteration"]))
+        test_res = agent_test(torch, pkg, counts, dict(raw, mesh_shape=[1]),
+                              reckon_coding, "agent_mesh_test")
+    done = epochs * steps
+    want = [(epochs - 1, done), (epochs - 1, done + steps)]
+    res = {"phase": "agent_mesh", "mesh_shape": [2], "backend": "gloo",
+           "batch": [raw["batch_size"], 3, raw["patch_size"],
+                     raw["patch_size"]], "seconds": seconds,
+           "counters": got}
+    emit(res)
+    if got != want:
+        raise AssertionError(f"agent_mesh counters {got}, expected {want}")
+    return res, test_res
+
+
+def phase_supervise(torch, pkg):
+    """The CLI under ``--supervise`` (CDF97, an epoch of 2 steps) runs to
+    exit 0; the heartbeat file its run beat is read after it."""
+    with open(CDF97_CONFIG) as fh:
+        raw = json.load(fh)
+    raw.update(CDF97_AGENT, max_epoch=1, exp_name="smoke_supervise")
+    env_path = os.environ.get("PYTHONPATH")
+    with tempfile.TemporaryDirectory() as tmp, working_dir(tmp):
+        with open("agent.json", "w") as fh:
+            json.dump(raw, fh)
+        old_tmp = tempfile.tempdir
+        tempfile.tempdir = tmp             # where supervise() puts its file
+        os.environ["PYTHONPATH"] = os.pathsep.join(
+            p for p in (HERE, env_path) if p)
+        try:
+            t0 = time.perf_counter()
+            rc = pkg.cli.main(["--supervise", "--stall-timeout", "600",
+                               "agent.json"])
+            seconds = time.perf_counter() - t0
+        finally:
+            tempfile.tempdir = old_tmp
+            if env_path is None:
+                os.environ.pop("PYTHONPATH", None)
+            else:
+                os.environ["PYTHONPATH"] = env_path
+        beats = [f for f in os.listdir(tmp) if f.startswith("train_hb_")]
+        age = (pkg.heartbeat.age_seconds(os.path.join(tmp, beats[0]))
+               if beats else None)
+    res = {"phase": "supervise", "rc": rc, "seconds": seconds,
+           "heartbeat_age_s": age}
+    emit(res)
+    if rc != 0 or age is None or not age <= seconds:
+        raise AssertionError(f"supervise: {res}")
+    return res
+
+
+def scale_out_phases(torch, F, np, pkg, counts, card):
+    """The matmul conv forms and the scale-out paths (``fast_conv_forms``
+    to ``supervise``)."""
+    res = {"fast_conv_forms": phase_fast_conv_forms(torch, F, np, pkg)}
+    torch.cuda.empty_cache()
+    res.update(phase_scale_out(torch, np, pkg, card))
+    res["agent_mesh"], res["agent_mesh_test"] = phase_agent_mesh(
+        torch, pkg, counts)
+    res["supervise"] = phase_supervise(torch, pkg)
+    torch.cuda.empty_cache()
+    return res
+
+
 def new_phases(torch, F, np, pkg, counts, conv):
     """The postprocess stage, tiled coding and the fp32 defaults of the
     entry points (the phases ``pp_kernel`` to ``agent_tf32_default``)."""
@@ -3865,11 +4406,16 @@ def main() -> int:
     from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.models import (
         codec, postprocess)
     from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.ops import (
-        color, conv3x3_halo as conv, conv_v2 as v2, dwt97, lift97)
+        color, conv3x3_halo as conv, conv_v2 as v2, dwt97, fast_conv, lift97,
+        lifting, masked_conv)
+    from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.parallel import (
+        mesh, tiling)
     from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.tools import (
         rd_heldout, weights)
     from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.train import (
         checkpoint, data, loop, loss, postprocess_loop, state)
+    from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.utils import (
+        heartbeat)
     pkg = SimpleNamespace(cli=cli, config=config, codec=codec, weights=weights,
                           checkpoint=checkpoint, data=data, loss=loss,
                           state=state, bottleneck=bottleneck,
@@ -3877,7 +4423,9 @@ def main() -> int:
                           gaussian=gaussian, entropy_models=entropy_models,
                           postprocess=postprocess, pp_loop=postprocess_loop,
                           tiled_coder=tiled_coder, rd_heldout=rd_heldout,
-                          loop=loop)
+                          loop=loop, fast_conv=fast_conv, lifting=lifting,
+                          masked_conv=masked_conv, mesh=mesh, tiling=tiling,
+                          heartbeat=heartbeat)
     counts = Counts(conv, v2, lift97)
     t_start = time.perf_counter()
 
@@ -3936,6 +4484,7 @@ def main() -> int:
         * (BITSTREAM_IMAGES[0] + KODAK_IMAGES)
     torch.cuda.empty_cache()
     res.update(new_phases(torch, F, numpy, pkg, counts, conv))
+    res.update(scale_out_phases(torch, F, numpy, pkg, counts, card))
 
     cdf97_cfg = cdf97_config(pkg)
     with tf32_off(torch):

@@ -34,7 +34,7 @@ from torch import nn
 
 from ..config import Config, compute_dtype
 from ..ops import register_list
-from ..ops.fast_conv import Conv2d, FastConv3x3
+from ..ops.fast_conv import Conv2d, FastConv3x3, FastGroupedConv1x1
 from ..ops.masked_conv import MaskedConv2d
 from ..ops.math_utils import quantize_dequantize, quantize_noise
 from ..ops.upscaling import ZeroTreePreviousLayer
@@ -59,7 +59,8 @@ def _quantize_ctx(x: torch.Tensor, training: bool, generator) -> torch.Tensor:
 
 class _ConvStack(nn.Module):
     """Conv -> LReLU -> ... -> Conv, SAME padding (fp32 output). Dense 3x3
-    layers run through ``conv3x3_halo``."""
+    layers run through ``conv3x3_halo``; with a compute dtype, grouped 1x1
+    layers (the cgp fusion) are ``FastGroupedConv1x1``."""
 
     def __init__(self, in_ch: int, features: Sequence[int],
                  kernels: Sequence[int], groups: int = 1, dtype=None):
@@ -69,6 +70,8 @@ class _ConvStack(nn.Module):
         for f, k in zip(features, kernels):
             if k == 3 and groups == 1:
                 layers.append(FastConv3x3(cin, f, dtype))
+            elif dtype is not None and k == 1 and groups > 1:
+                layers.append(FastGroupedConv1x1(cin, f, groups, dtype))
             else:
                 layers.append(Conv2d(cin, f, k, groups=groups, dtype=dtype))
             cin = f

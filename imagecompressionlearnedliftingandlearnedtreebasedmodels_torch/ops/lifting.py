@@ -19,7 +19,8 @@ import torch
 from torch import nn
 
 from . import register_list
-from .fast_conv import Conv2d
+from .fast_conv import (Conv2d, FastConv5x5, conv_lowp, depth_to_space2,
+                        s2d_kernel_5x5, space_to_depth2)
 from .math_utils import LIFTING_COEFF
 
 ALPHA, BETA, GAMMA, DELTA, NH_COEFF, NL_COEFF = LIFTING_COEFF
@@ -27,7 +28,8 @@ ALPHA, BETA, GAMMA, DELTA, NH_COEFF, NL_COEFF = LIFTING_COEFF
 
 class PBlock(nn.Module):
     """4-conv residual block: conv1 -> (tanh) -> conv2 -> (tanh) -> conv3,
-    + conv1 output, -> conv4 (fp32 output)."""
+    + conv1 output, -> conv4 (fp32 output). With a compute dtype the 5x5
+    convs are ``FastConv5x5`` (the polyphase form on even planes)."""
 
     def __init__(self, channels: int, hidden: int, filtersize: int = 5,
                  nonlinear: bool = True, dtype=None):
@@ -35,19 +37,51 @@ class PBlock(nn.Module):
         self.nonlinear = nonlinear
         widths = [(channels, hidden), (hidden, hidden), (hidden, hidden),
                   (hidden, channels)]
-        self.convs = register_list(
-            self, "Conv", [Conv2d(i, o, filtersize, dtype=dtype)
-                           for i, o in widths])
+        if dtype is not None and filtersize == 5:
+            convs = [FastConv5x5(i, o, dtype) for i, o in widths]
+        else:
+            convs = [Conv2d(i, o, filtersize, dtype=dtype) for i, o in widths]
+        self.convs = register_list(self, "Conv", convs)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask=None) -> torch.Tensor:
+        """``mask`` (halo-sharded eval only): a broadcastable 0/1 tensor
+        multiplied onto every conv input. On a halo-extended block whose
+        rows outside the image are zero, re-zeroing each intermediate
+        before the next conv reproduces the unsharded SAME zero padding
+        exactly (the conv biases would otherwise bleed into those rows)."""
+        if isinstance(self.convs[0], FastConv5x5) and mask is None \
+                and not (x.shape[2] % 2 or x.shape[3] % 2):
+            return self._forward_s2d(x)
+        m = (lambda t: t) if mask is None else (lambda t: t * mask)
         c0, c1, c2, c3 = self.convs
-        out_res = c0(x)
+        out_res = c0(m(x))
         t = torch.tanh(out_res) if self.nonlinear else out_res
-        t = c1(t)
+        t = c1(m(t))
         if self.nonlinear:
             t = torch.tanh(t)
-        t = c2(t) + out_res
-        return c3(t).float()
+        t = c2(m(t)) + out_res
+        return c3(m(t)).float()
+
+
+    def _forward_s2d(self, x: torch.Tensor) -> torch.Tensor:
+        """The block with every conv in ``conv5x5_s2d``'s form, the
+        activations kept in the space-to-depth layout from the first conv
+        to the last: the tanh and the residual add commute with it, so
+        the values are those of four separate ``conv5x5_s2d`` calls, less
+        six layout copies (the pairs XLA cancels in the JAX package)."""
+        def conv(c, t):
+            y = conv_lowp(t, s2d_kernel_5x5(c.weight, c.dtype), c.dtype,
+                          padding=1).float()
+            return y + c.bias.repeat(4).view(1, -1, 1, 1)
+
+        c0, c1, c2, c3 = self.convs
+        out_res = conv(c0, space_to_depth2(x))
+        t = torch.tanh(out_res) if self.nonlinear else out_res
+        t = conv(c1, t)
+        if self.nonlinear:
+            t = torch.tanh(t)
+        t = conv(c2, t) + out_res
+        return depth_to_space2(conv(c3, t))
 
 
 class SkipConv(nn.Module):
@@ -96,6 +130,7 @@ class LiftStage(nn.Module):
                  dtype=None):
         super().__init__()
         self.num_pairs = num_pairs
+        self.filtersize = filtersize
         self.res_weight = res_weight
         self.use_scale = use_scale
         pred_coeffs = [ALPHA, GAMMA]
@@ -142,6 +177,85 @@ class LiftStage(nn.Module):
             L = L - skip - self.u_blocks[p](skip) * w
             skip = self.skips[2 * p](L)
             H = H - skip - self.p_blocks[p](skip) * w
+        return L, H
+
+
+    # --- halo-sharded variants (parallel/tiling.py::make_halo_eval_step) --
+    #
+    # The exchanges come in as callables, so the module knows nothing of
+    # the mesh: ``ext(t)`` concatenates r neighbour rows on each side along
+    # the sharded axis (zeros beyond the image's first and last rows, which
+    # is the ladder's zero padding); ``mask`` is 0/1 over the extended axis,
+    # zero outside the image, multiplied onto every conv input so that each
+    # conv's SAME zero padding is reproduced exactly (PBlock.forward). In the
+    # row pass the lifted axis (2) is the sharded one and the skip conv
+    # needs the extension too; in the column pass (transposed bands, sharded
+    # axis 3) the skip conv is local and only the P/U convs need halos.
+
+    @property
+    def halo_radius(self) -> int:
+        """Rows of valid context a P/U block consumes on each side."""
+        return 4 * (self.filtersize // 2)
+
+    def forward_halo_rows(self, L, H, ext, mask, R: int):
+        """Row-pass forward, sharded axis == lifted axis (2); ``R ==
+        halo_radius + 1`` (one more row for the 3-tap skip conv)."""
+        w = self.res_weight
+        for p in range(self.num_pairs):
+            sk = self.skips[2 * p](ext(L)) * mask
+            H = H + sk[:, :, R:-R] + self.p_blocks[p](sk, mask)[:, :, R:-R] * w
+            sk = self.skips[2 * p + 1](ext(H)) * mask
+            L = L + sk[:, :, R:-R] + self.u_blocks[p](sk, mask)[:, :, R:-R] * w
+        if self.use_scale:
+            nh_eff, nl_eff = self._gains()
+            H = H * nh_eff
+            L = L * nl_eff
+        return L, H
+
+    def inverse_halo_rows(self, L, H, ext, mask, R: int):
+        w = self.res_weight
+        if self.use_scale:
+            nh_eff, nl_eff = self._gains()
+            H = H / nh_eff
+            L = L / nl_eff
+        for p in range(self.num_pairs - 1, -1, -1):
+            sk = self.skips[2 * p + 1](ext(H)) * mask
+            L = L - sk[:, :, R:-R] - self.u_blocks[p](sk, mask)[:, :, R:-R] * w
+            sk = self.skips[2 * p](ext(L)) * mask
+            H = H - sk[:, :, R:-R] - self.p_blocks[p](sk, mask)[:, :, R:-R] * w
+        return L, H
+
+    def forward_halo_cols(self, L, H, ext, mask, r: int):
+        """Column-pass forward on transposed bands (B, C, W, Hs): the
+        lifted axis (2) is local, the sharded axis is 3; ``r ==
+        halo_radius``."""
+        w = self.res_weight
+        for p in range(self.num_pairs):
+            sk = self.skips[2 * p](L)
+            ske = ext(sk) * mask
+            H = H + sk + self.p_blocks[p](ske, mask)[..., r:-r] * w
+            sk = self.skips[2 * p + 1](H)
+            ske = ext(sk) * mask
+            L = L + sk + self.u_blocks[p](ske, mask)[..., r:-r] * w
+        if self.use_scale:
+            nh_eff, nl_eff = self._gains()
+            H = H * nh_eff
+            L = L * nl_eff
+        return L, H
+
+    def inverse_halo_cols(self, L, H, ext, mask, r: int):
+        w = self.res_weight
+        if self.use_scale:
+            nh_eff, nl_eff = self._gains()
+            H = H / nh_eff
+            L = L / nl_eff
+        for p in range(self.num_pairs - 1, -1, -1):
+            sk = self.skips[2 * p + 1](H)
+            ske = ext(sk) * mask
+            L = L - sk - self.u_blocks[p](ske, mask)[..., r:-r] * w
+            sk = self.skips[2 * p](L)
+            ske = ext(sk) * mask
+            H = H - sk - self.p_blocks[p](ske, mask)[..., r:-r] * w
         return L, H
 
 

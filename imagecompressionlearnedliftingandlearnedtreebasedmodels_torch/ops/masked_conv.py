@@ -2,6 +2,10 @@
 
 The mask multiplies the weight at call time, so the stored weight keeps
 the flax kernel's values (masked taps included) and carries across raw.
+With a compute dtype a grouped masked conv takes the JAX package's rule:
+on planes of 4096 pixels or more (outside ``fast_conv.disable_pallas``)
+the T-tap batched product ``fast_conv.grouped_conv_taps`` (fp32 sums and
+output), otherwise ``nn.Conv``'s bf16 rounding.
 Position (i, j) of a (kh, kw) kernel is visible when ``i < kh//2`` or
 (``i == kh//2`` and ``j < kw//2``); type B also sees the centre.
 
@@ -19,7 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .fast_conv import Conv2d
+from .fast_conv import Conv2d, grouped_conv_taps, large_plane
 
 
 def causal_mask(kernel_size: Tuple[int, int], mask_type: str) -> np.ndarray:
@@ -48,7 +52,11 @@ class MaskedConv2d(Conv2d):
                              persistent=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(x, self.weight * self.mask)
+        weight = self.weight * self.mask
+        if self.dtype is not None and self.groups > 1 and large_plane(x):
+            return grouped_conv_taps(x, weight, self.bias, self.groups,
+                                     self.dtype)
+        return self.conv(x, weight)
 
 
 def channel_mask(in_ch: int, out_ch: int, blocks: int,

@@ -105,11 +105,15 @@ def ste_round(x: torch.Tensor) -> torch.Tensor:
 
 def uniform_noise(x: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
     """U(-0.5, 0.5) of x's shape and dtype, drawn on the generator's device
-    and moved to x's."""
+    and moved to x's. ``generator`` may also be a noise source with a
+    ``draw(shape, dtype)`` method (``parallel/dp.py``'s batch slice)."""
     if generator is None:
         raise ValueError("training noise needs an explicit torch.Generator")
-    u = torch.rand(x.shape, generator=generator, device=generator.device,
-                   dtype=x.dtype)
+    if isinstance(generator, torch.Generator):
+        u = torch.rand(x.shape, generator=generator, device=generator.device,
+                       dtype=x.dtype)
+    else:
+        u = generator.draw(x.shape, x.dtype)
     return (u - 0.5).to(x.device)
 
 

@@ -12,8 +12,13 @@ The device is explicit: CUDA unless the caller passes ``device="cpu"``.
 coding in host C++), in tiles (``coding/tiled_coder.py``) where
 ``tile_size`` divides the image's height into more than one.
 ``train_postprocess`` trains the restoration net on the frozen codec
-(``train/postprocess_loop.py``). A mesh of more than one device (ROADMAP
-Queue A item 13) is not ported yet and raises ``NotImplementedError``.
+(``train/postprocess_loop.py``). With ``mesh_shape`` of more than one
+device the agent is one rank of a data-parallel run (the CLI starts the
+ranks): it trains with ``parallel/dp.py``'s ``make_shardmap_train_step``
+and evaluates with ``make_dp_eval_step``, or with ``parallel/tiling.py``'s
+``make_halo_eval_step`` under ``halo_eval``; rank 0 alone logs, saves the
+checkpoints (plain state dicts, so a mesh run and a single-device run
+resume from each other) and runs ``test``.
 ``steps_per_call`` is accepted and ignored: it chains steps to hide a
 TPU's dispatch latency, and every step here is dispatched on its own.
 fp32 runs at full fp32 precision (``config.full_fp32``: TF32 off).
@@ -21,6 +26,7 @@ fp32 runs at full fp32 precision (``config.full_fp32``: TF32 off).
 
 from __future__ import annotations
 
+import logging
 import os
 
 import numpy as np
@@ -47,13 +53,21 @@ class LiftingDWTAgent:
 
     def __init__(self, cfg: Config, device=None):
         self.cfg = cfg
-        self.device = resolve_device(device)
         full_fp32()
-        self.logger = setup_logging(cfg.log_dir)
-        if int(np.prod(cfg.mesh_shape)) > 1:
-            raise NotImplementedError(
-                f"mesh_shape {tuple(cfg.mesh_shape)}: data-parallel training "
-                "on several GPUs is not ported yet (ROADMAP Queue A item 13)")
+        self.mesh = self._build_mesh(device)
+        self.is_main = self.mesh is None or self.mesh.rank == 0
+        self.device = (resolve_device(device) if self.mesh is None
+                       else self.mesh.device)
+        if self.is_main:
+            self.logger = setup_logging(cfg.log_dir)
+        else:
+            self.logger = logging.getLogger(f"lwc_torch.rank{self.mesh.rank}")
+            self.logger.setLevel(logging.WARNING)
+        if self.mesh is not None:
+            self.logger.info(
+                f"data-parallel mesh: {self.mesh.size} ranks "
+                f"({cfg.batch_size // self.mesh.size} examples/rank, "
+                f"{self.mesh.backend} on {self.mesh.device})")
         if cfg.steps_per_call > 1:
             self.logger.info(
                 f"steps_per_call={cfg.steps_per_call} is ignored: every step "
@@ -67,12 +81,27 @@ class LiftingDWTAgent:
         self.model = CodecWrapper(cfg, generator=init_gen).to(self.device)
         self.data = ImageDataLoader(cfg)
         self.optimizer = make_optimizer(cfg, self.model)
-        self.train_step = make_train_step(cfg, self.model, self.optimizer,
-                                          self.device)
-        self.eval_step = make_eval_step(cfg, self.model, self.device)
-        # quantization noise, drawn on the device the model runs on
-        self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(cfg.seed + 7)
+        if self.mesh is None:
+            self.train_step = make_train_step(cfg, self.model, self.optimizer,
+                                              self.device)
+            self.eval_step = make_eval_step(cfg, self.model, self.device)
+            # quantization noise, drawn on the device the model runs on
+            self.generator = torch.Generator(device=self.device)
+            self.generator.manual_seed(cfg.seed + 7)
+        else:
+            from ..parallel import dp
+            self.train_step, shard_state = dp.make_shardmap_train_step(
+                cfg, self.model, self.optimizer, self.mesh)
+            shard_state()
+            if cfg.halo_eval:
+                from ..parallel.tiling import make_halo_eval_step
+                self.eval_step = make_halo_eval_step(cfg, self.model,
+                                                     self.mesh)
+            else:
+                self.eval_step = dp.make_dp_eval_step(cfg, self.model,
+                                                      self.mesh)
+            # each rank's own noise, seeded from (seed, rank)
+            self.generator = dp.rank_generator(cfg.seed + 7, self.mesh)
 
         self.scheduler = PlateauScheduler(lr=cfg.learning_rate)
         self.loss_switch = LossSwitchController(
@@ -84,7 +113,8 @@ class LiftingDWTAgent:
         self.timers = PhaseTimers()
         self._trace = None
 
-        jsonl = f"{cfg.summary_dir}/metrics.jsonl" if cfg.summary_dir else None
+        jsonl = (f"{cfg.summary_dir}/metrics.jsonl"
+                 if cfg.summary_dir and self.is_main else None)
         self.train_logger = RDLogger(self.logger, jsonl)
         self.trnit_logger = RDLogger(self.logger, jsonl)
         self.valid_logger = RDLogger(self.logger, jsonl)
@@ -97,9 +127,24 @@ class LiftingDWTAgent:
             self.load_checkpoint(cfg.checkpoint_file)
         self.model_size_estimation()
 
+    def _build_mesh(self, device):
+        """The data-parallel mesh of ``cfg.mesh_shape`` (this process is one
+        of its ranks; the CLI starts them and joins the process group), or
+        None for one device."""
+        n = int(np.prod(self.cfg.mesh_shape))
+        if n <= 1:
+            return None
+        if self.cfg.batch_size % n:
+            raise ValueError(f"batch_size {self.cfg.batch_size} not "
+                             f"divisible by mesh size {n}")
+        from ..parallel import mesh as mesh_lib
+        return mesh_lib.make_mesh(n, device=device)
+
     # ------------------------------------------------------------------
     def run(self):
         mode = self.cfg.mode
+        if mode == "test" and not self.is_main:
+            return  # rank 0 codes the test images
         try:
             if mode == "train":
                 self.train()
@@ -141,9 +186,9 @@ class LiftingDWTAgent:
 
     def _profile_tick(self):
         """Device-trace window: steps [1, 1+profile_steps) of the run (step
-        0 pays the kernel build and cuDNN's planning)."""
+        0 pays the kernel build and cuDNN's planning); rank 0's alone."""
         cfg = self.cfg
-        if cfg.profile_steps <= 0:
+        if cfg.profile_steps <= 0 or not self.is_main:
             return
         if self._trace is None and self.current_iteration == 1:
             self._trace = DeviceTrace(
@@ -272,7 +317,7 @@ class LiftingDWTAgent:
 
     # ------------------------------------------------------------------
     def save_checkpoint(self, is_best: bool = False):
-        if not self.cfg.checkpoint_dir:
+        if not self.cfg.checkpoint_dir or not self.is_main:
             return
         payload = {
             "epoch": self.current_epoch,

@@ -53,3 +53,46 @@ class Heartbeat:
             f.write(f"{now:.3f}\n")
         os.replace(tmp, self.path)  # atomic: a watcher never sees a torn file
 
+
+
+class HeartbeatLease:
+    """Bounded background beater for long phases that save nothing between
+    beats (the real-bitstream ``test`` mode: one image's round trip can
+    outlast a supervisor's timeout). Beats every ``interval`` seconds from
+    a daemon thread while the phase runs, and stops by itself after
+    ``max_s``, so a phase that truly hangs still goes stale and is
+    restarted, on a coarser clock."""
+
+    def __init__(self, hb: Heartbeat, interval: float = 60.0,
+                 max_s: float = 2400.0):
+        self._hb = hb
+        self._interval = interval
+        self._max_s = max_s
+        self._stop = None
+
+    def __enter__(self):
+        self._stop = threading.Event()
+        stop = self._stop
+
+        def run():
+            t0 = time.time()
+            while not stop.is_set() and (time.time() - t0) < self._max_s:
+                self._hb.beat(force=True)
+                stop.wait(self._interval)
+
+        if self._hb.path:
+            threading.Thread(target=run, daemon=True).start()
+        return self
+
+    def __exit__(self, *exc):
+        if self._stop is not None:
+            self._stop.set()
+        return False
+
+
+def age_seconds(path: str) -> Optional[float]:
+    """Seconds since the last beat, or None if the file does not exist."""
+    try:
+        return max(0.0, time.time() - os.stat(path).st_mtime)
+    except OSError:
+        return None

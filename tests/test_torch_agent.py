@@ -416,11 +416,14 @@ def test_cli_trains_resumes_and_codes_the_tree_entropy_models(
 
 
 def test_unported_options_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 13"):
+    # a mesh needs a batch that divides it, and the process group that the
+    # CLI's launcher joins (the mesh run itself: tests/test_torch_parallel.py)
+    with pytest.raises(ValueError, match="not divisible"):
         ploop.LiftingDWTAgent(tiny_cfg(tmp_path, mesh_shape=(2,)),
                               device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        pcli.main(["--supervise", "x.json"])
+    with pytest.raises(RuntimeError, match="not initialized"):
+        ploop.LiftingDWTAgent(tiny_cfg(tmp_path, mesh_shape=(2,),
+                                       batch_size=2), device="cpu")
     with pytest.raises(KeyError):
         pregistry.get_agent("NoSuchAgent")
     assert pregistry.get_agent("CompressionAgent") is ploop.LiftingDWTAgent
