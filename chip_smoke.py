@@ -101,7 +101,7 @@ path's), tiled coding and the entry points' fp32:
 13c. pp_main  the restored eval step at B=8 512x768 (ms, MP/s, 153 launches
            a step), the postprocess train step at B=8 256x256 (ms, 153
            launches and 14 dx a step, peak memory), one step profiled
-           (``pp_train_profile``), then 100 steps from the seeded init: the
+           (``pp_train_profile``), then 200 steps from the seeded init: the
            held-out batch's restored MSE must fall;
 13d. pp_agent  the CLI's ``mode: train_postprocess`` on a checkpoint of
            the lambda=2000 snapshot (2 epochs of 2 steps, validation with
@@ -110,7 +110,7 @@ path's), tiled coding and the entry points' fp32:
            with ``tile_size`` 256 (4 tiles), held to the JAX package's CPU
            tiled coding (``results/port_tiled_targets.json``) at 0.5 % bpp
            and 0.02 dB; the same image's tiles one after another against
-           the tile pool (the same bytes); the image again with
+           the tile pool (the same bytes); a 2048x2048 image with
            ``tile_size`` 512 on the pool: s/image, MP/s, each tile's
            card/host split, peak memory;
 13f. agent_tf32_default  the CLI's ``mode: test`` entered with PyTorch's
@@ -123,20 +123,24 @@ path's), tiled coding and the entry points' fp32:
            of the bf16 eval step (B=8 512x768) that takes one: the cgp
            stacks' ``grouped_conv1x1_einsum`` and the csc conv's
            ``grouped_conv_taps`` (fp32 sums of bf16 operands, 1e-4 of max
-           |plain|), the P/U convs' ``conv5x5_s2d`` (its bf16 output within
-           half a bf16 step), each with its time, the plain version's,
-           cuDNN's bf16 conv and the bound; the grouped forms at the fp32
-           step's shapes beside cuDNN's fp32 grouped convs (recorded only);
-           the bf16 eval and train steps with today's forms and with the
-           earlier cuDNN grouped and 5x5 convs, in turns;
+           |plain|), each with its time, the plain version's, cuDNN's
+           bf16 conv and the bound; ``conv5x5_s2d`` (not wired: the P/U
+           convs take cuDNN's bf16 5x5, the same rounding) at the largest
+           P/U shape, its bf16 output within half a bf16 step; the grouped
+           forms at the fp32 step's shapes beside cuDNN's fp32 grouped
+           convs (recorded only); the bf16 eval and train steps with
+           today's forms and with the earlier cuDNN grouped convs, in
+           turns;
 13h. dp_train_gloo, dp_train_nccl  the fp32 flagship train step (lambda=2000
            snapshot, B=8 256x256) through ``make_dp_train_step`` on two
            ranks sharing the card (gloo: NCCL refuses two ranks on one
            GPU) and on one NCCL rank, each rank against the single-device
-           step (RD terms 1e-4, gradients 1e-2 a tensor, 1e-3 on the L2,
-           cuDNN deterministic), the ranks' parameters equal to the bit
-           after 3 steps, the shardmap step timed, kernel 1's launches
-           (forward and dx) counted in each rank;
+           step (RD terms 1e-4) and its gradients against one device's of
+           the same batch slices averaged (the whole batch's on one rank;
+           1e-2 a tensor, 1e-3 on the L2, cuDNN deterministic; the gap to
+           the whole batch's recorded), the ranks' parameters equal to
+           the bit after 3 steps, the shardmap step timed, kernel 1's
+           launches (forward and dx) counted in each rank;
 13i. halo_eval_flagship, halo_eval_cdf97  one 2048x2048 image H-sharded
            over two gloo ranks through ``make_halo_eval_step``: RD terms
            1e-4 and xhat's mean |d| 1e-5 of the single-device eval step;
@@ -211,7 +215,7 @@ port's seeded init (no trained weights of these models exist). For each:
            19 dead-leaves images: lossless, each image's real rate within 3 % of its
            likelihood rate under the coding path's contexts (the eval
            step's rate beside it: ZTBlock's eval forward quantizes its
-           contexts otherwise), one image coded on the CPU too (0.5 %
+           contexts otherwise), two images coded on the CPU too (0.5 %
            bpp, 0.02 dB), s/image with the card/host split, one round trip
            profiled; 156 kernel-1 launches an image for onlyEZWT (the AEs'
            120, the plc's 18 in the encoder's chain and 18 in the decoder's
@@ -317,7 +321,7 @@ FLAGSHIP_POINTS = {
                               "port_flagship6000_targets.json"),))}
 BITSTREAM_IMAGES = (19, 256, 9999)  # synthetic_natural_images(n, size, seed)
 TREE_BITSTREAM_IMAGES = 8        # the first 8 of those, for the tree models
-AGENT_TEST_IMAGES = (2, 128, 9999)  # every agent's mode: test (n, size, seed)
+AGENT_TEST_IMAGES = (4, 128, 9999)  # every agent's mode: test (n, size, seed)
 KODAK_IMAGES = 2                 # bitstream_bf16's timed 512x768 images
 CDF97_BITSTREAM_IMAGES = 4       # 256x256
 # the tree-based entropy models: (phase prefix, entropy_layer, Adam steps
@@ -329,7 +333,7 @@ TREE_SEED = 0                    # the entropy models' init
 TREE_TRAIN_STEPS = 2             # timed bf16 train steps of each
 TREE_FIT_LR = 1e-3               # the fit: Adam over the snapshot
 TREE_FIT_BATCH = (8, 128)        # transform's subbands of 8 seeded patches
-TREE_CPU_IMAGES = 1              # bitstream images also coded on the CPU
+TREE_CPU_IMAGES = 2              # bitstream images also coded on the CPU
 TREE_AGENT = dict(AGENT, steps_per_epoch=2, max_epoch=1, patch_size=64)
 CODING_MANY = 8                  # images of phase coding_many (256x256)
 # the quincunx integer-lifting codec: scripts/rd_sweep.py's preset (its
@@ -356,12 +360,12 @@ PP_KINDS = ("DnCNN", "iwave", "IRCNN", "DIDN", "DUDnCNN")
 PP_RESNETLEVEL = 6
 PP_PARITY = (2, 64)
 PP_TRAIN_STEPS = 5
-PP_CONVERGE = (100, 2, 64)
+PP_CONVERGE = (200, 2, 64)
 PP_AGENT = dict(AGENT, postprocess="iwave", resnetlevel=PP_RESNETLEVEL,
                 steps_per_epoch=2)
 # tiled coding: (side, tile_size, seed) of the image held to the JAX
 # package's CPU tiled coding, then of the timed one
-TILED = ((1024, 256, 3), (1024, 512, 3))
+TILED = ((1024, 256, 3), (2048, 512, 3))
 TILED_TARGETS = os.path.join(HERE, "results", "port_tiled_targets.json")
 DEV = "cuda"
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, fp32 CUDA
@@ -3446,7 +3450,7 @@ def phase_tiled_bitstream(torch, np, pkg, counts):
     ``tile_size`` 256 (the agent codes it in 4 tiles on the pool), held to
     the JAX package's CPU tiled coding (``results/port_tiled_targets.json``);
     the same image through ``TiledCodecCoder`` with the tiles one after
-    another, then on the pool (the same bytes); then the image again with
+    another, then on the pool (the same bytes); then a 2048x2048 image with
     ``tile_size`` 512 on the pool: s/image, MP/s, each tile's card/host
     split, peak memory."""
     with open(TILED_TARGETS) as fh:
@@ -3861,40 +3865,22 @@ def kernel_entries(conv, v2, lift97, rows, bwd_rows, v2_rows, lift_rows,
 def earlier_conv_forms(pkg):
     """The port's conv forms before the JAX package's matmul forms came in:
     every grouped 1x1 and masked grouped conv a cuDNN bf16 conv at every
-    size, every lifting P/U 5x5 conv one cuDNN bf16 5x5 conv, its output
-    cast to fp32 before the fp32 bias (the earlier forms' costs, timed
-    against today's)."""
-    fc, mc, pb = pkg.fast_conv, pkg.masked_conv, pkg.lifting.PBlock
-    saved = (fc.large_plane, mc.large_plane, pb._forward_s2d)
-
-    def block(self, x):
-        def conv(c, t):
-            return fc._add_bias(c._conv(t, c.weight).float(), c.bias)
-
-        c0, c1, c2, c3 = self.convs
-        out_res = conv(c0, x)
-        t = torch_tanh(out_res) if self.nonlinear else out_res
-        t = conv(c1, t)
-        if self.nonlinear:
-            t = torch_tanh(t)
-        return conv(c3, conv(c2, t) + out_res)
-
-    import torch
-    torch_tanh = torch.tanh
+    size (the earlier forms' costs, timed against today's)."""
+    fc, mc = pkg.fast_conv, pkg.masked_conv
+    saved = (fc.large_plane, mc.large_plane)
     fc.large_plane = mc.large_plane = lambda x: False
-    pb._forward_s2d = block
     try:
         yield
     finally:
-        fc.large_plane, mc.large_plane, pb._forward_s2d = saved
+        fc.large_plane, mc.large_plane = saved
 
 
 def form_shapes(cfg, b, h, w):
     """Every distinct (form, x NCHW, weight, groups) the eval step gives a
     matmul form, with its calls a step: the cgp layers and the csc conv of
-    each finer level whose plane has 4096 pixels or more, the P/U convs of
-    every level's row and column passes (lifting runs in the analysis and
-    again in the synthesis)."""
+    each finer level whose plane has 4096 pixels or more; then
+    ``conv5x5_s2d`` at the largest P/U conv shape (level 0's row pass),
+    which the step does not take (0 calls)."""
     c, so = cfg.clrch, 3 * cfg.clrch
     planes = 3 if c == 1 else 1
     wide, hid = so * 81, cfg.depth_scale * 8 * c
@@ -3910,22 +3896,18 @@ def form_shapes(cfg, b, h, w):
                          (cout, cin // so, 1, 1), so, planes))
         rows.append(("grouped_conv_taps", (b, so, hl, wl), (wide, 1, 5, 5),
                      so, planes))
-    per_pass = 2 * cfg.num_lifting_perlayer * 2 * planes   # P and U, 2 ways
-    for lv in range(cfg.dwtlevels):
-        hl, wl = h >> lv, w >> lv
-        for bb, rh, rw in ((b, hl // 2, wl), (2 * b, wl // 2, hl // 2)):
-            for cin, cout, n in ((c, hid, 1), (hid, hid, 2), (hid, c, 1)):
-                rows.append(("conv5x5_s2d", (bb, cin, rh, rw),
-                             (cout, cin, 5, 5), 1, n * per_pass))
+    rows.append(("conv5x5_s2d", (b, hid, h // 2, w), (hid, hid, 5, 5), 1,
+                 0))
     return rows
 
 
 def phase_fast_conv_forms(torch, F, np, pkg):
     """Each matmul form against its plain version at every bf16 shape of the
     flagship eval step (fp32 sums of the same bf16-rounded operands: 1e-4
-    of max |plain|; ``conv5x5_s2d`` rounds its output to bf16, so half a
-    bf16 step, 2^-8 of |y| at most), with its time, cuDNN's bf16 conv (the port's earlier form
-    and the library call) and the bound; then the grouped forms at the
+    of max |plain|; ``conv5x5_s2d``, at one shape the step does not give
+    it, rounds its output to bf16, so half a bf16 step, 2^-8 of |y| at
+    most), with its time, cuDNN's bf16 conv (the port's earlier form and
+    the library call) and the bound; then the grouped forms at the
     fp32 step's shapes against cuDNN's fp32 grouped convs (recorded only:
     fp32 configs keep ``F.conv2d``); then the bf16 eval and train steps
     with today's forms and with the earlier ones, in turns."""
@@ -4049,10 +4031,39 @@ def mesh_inputs(torch, np, pkg):
             tiled[None].astype(np.float32) / 255.0)
 
 
+def sliced_batch_grads(torch, pkg, cfg, batch, n):
+    """The gradients that ``make_dp_train_step`` on ``n`` ranks averages,
+    computed on one device: each rank's slice of the batch, with its slice
+    of the shared noise, differentiated alone, then the mean over the
+    slices in the order of the ranks' all-reduce. The same sums as the
+    ranks' own, so the gate reads the exchange and not the summation
+    order of the whole batch's gradient, which two half-batches summed
+    apart move by up to 1e-2 in an ill-conditioned GDN tensor."""
+    from types import SimpleNamespace
+    from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.parallel.dp import (
+        BatchSliceNoise)
+    model = load_model(cfg, pkg).to(DEV).train()
+    b = batch.shape[0] // n
+    total = {}
+    for r in range(n):
+        model.zero_grad(set_to_none=True)
+        noise = BatchSliceNoise(torch.Generator(device=DEV).manual_seed(
+            MESH_TRAIN_SEED), SimpleNamespace(rank=r, size=n))
+        xs, xhat, info_xe, info_xo, aux = pkg.state.apply_color_forward(
+            cfg, model, batch[r * b:(r + 1) * b].to(DEV), True, noise)
+        out = pkg.loss.rd_loss3(xs, xhat, info_xe, info_xo, cfg.lambda_, 1.0)
+        ((out.loss + aux) / max(cfg.grad_acc_iters, 1)).backward()
+        for k, p in model.named_parameters():
+            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            total[k] = g.clone() if r == 0 else total[k] + g
+    return {k: (g / n).cpu() for k, g in total.items()}
+
+
 def scale_out_refs(torch, np, pkg, outdir):
     """The single-device results the ranks hold themselves to, written to
     ``outdir``: one fp32 flagship train step (its RD terms and gradients),
-    each halo model's eval step at HALO_SIZE, and ``tiled_forward``."""
+    the same gradients as two ranks' slices average them, each halo
+    model's eval step at HALO_SIZE, and ``tiled_forward``."""
     tbatch, himg, timg = mesh_inputs(torch, np, pkg)
     cfg = pkg.config.flagship_config(lambda_=2000.0, learning_rate=TRAIN_LR)
     model = load_model(cfg, pkg)
@@ -4060,8 +4071,9 @@ def scale_out_refs(torch, np, pkg, outdir):
         cfg, model, pkg.state.make_optimizer(cfg, model), DEV)
     out, _ = step(tbatch, torch.Generator(device=DEV).manual_seed(
         MESH_TRAIN_SEED), TRAIN_LR, 1.0)
-    refs = {"train": ([float(v) for v in out],
-                      {k: p.grad.cpu() for k, p in model.named_parameters()})}
+    grads = {1: {k: p.grad.cpu() for k, p in model.named_parameters()},
+             2: sliced_batch_grads(torch, pkg, cfg, tbatch, 2)}
+    refs = {"train": ([float(v) for v in out], grads)}
     del model, step
     for name, hcfg, hmodel in halo_models(torch, pkg):
         out, xhat = pkg.state.make_eval_step(hcfg, hmodel, DEV)(himg)
@@ -4072,6 +4084,19 @@ def scale_out_refs(torch, np, pkg, outdir):
                                              timg, TILED_MESH[1], DEV)
     torch.save(refs, os.path.join(outdir, "refs.pt"))
     torch.cuda.empty_cache()
+
+
+def grad_gaps_l2(got, want):
+    """({name: max |got - want| / max |want|}, the L2 of the differences
+    over the L2 of ``want``, every tensor together)."""
+    gaps, l2_gap, l2 = {}, 0.0, 0.0
+    for k, w in want.items():
+        g = got[k]
+        gaps[k] = float((g - w).abs().max()) / max(float(w.abs().max()),
+                                                   1e-30)
+        l2_gap += float(((g - w) ** 2).sum())
+        l2 += float((w ** 2).sum())
+    return gaps, math.sqrt(l2_gap / l2)
 
 
 def mesh_rank(mesh, outdir, phases):
@@ -4098,8 +4123,9 @@ def mesh_rank(mesh, outdir, phases):
     pkg = SimpleNamespace(config=config, codec=codec, weights=weights,
                           data=data, state=state, tiling=tiling)
     counts = Counts(conv, v2, lift97)
-    # the gradient gates' reading repeats with cuDNN's deterministic
-    # algorithms (the single-device reference takes them too)
+    # the gradients' references took cuDNN's deterministic algorithms, so
+    # the ranks' own sums are the references' to the bit where the
+    # exchange is right
     torch.backends.cudnn.deterministic = True
     refs = torch.load(os.path.join(outdir, "refs.pt"), weights_only=False)
     tbatch, himg, timg = mesh_inputs(torch, np, pkg)
@@ -4122,13 +4148,9 @@ def mesh_rank(mesh, outdir, phases):
         torch.cuda.synchronize()
         launches = counts.read()
         want_terms, want_grads = refs["train"]
-        gaps, l2_gap, l2 = {}, 0.0, 0.0
-        for k, p in model.named_parameters():
-            g, w = p.grad.cpu(), want_grads[k]
-            gaps[k] = float((g - w).abs().max()) / max(float(w.abs().max()),
-                                                       1e-30)
-            l2_gap += float(((g - w) ** 2).sum())
-            l2 += float((w ** 2).sum())
+        got_grads = {k: p.grad.cpu() for k, p in model.named_parameters()}
+        gaps, l2_gap = grad_gaps_l2(got_grads, want_grads[mesh.size])
+        whole_gaps, whole_l2_gap = grad_gaps_l2(got_grads, want_grads[1])
         for _ in range(MESH_TRAIN_STEPS - 1):
             step(tbatch, gen, TRAIN_LR, 1.0)
         flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
@@ -4144,9 +4166,14 @@ def mesh_rank(mesh, outdir, phases):
                          MESH_TIMED_STEPS)
         write("dp_train", {
             "terms": [float(v) for v in out], "want_terms": want_terms,
+            "grad_ref": "whole batch" if mesh.size == 1
+            else f"{mesh.size} slices averaged",
             "worst_grad": max(gaps, key=gaps.get),
             "worst_grad_rel_err": max(gaps.values()),
-            "grad_l2_rel_err": math.sqrt(l2_gap / l2),
+            "grad_l2_rel_err": l2_gap,
+            "whole_batch_worst_grad": max(whole_gaps, key=whole_gaps.get),
+            "whole_batch_worst_grad_rel_err": max(whole_gaps.values()),
+            "whole_batch_grad_l2_rel_err": whole_l2_gap,
             "params_equal_after_steps": same, "launches": launches,
             "shardmap_ms_per_step": sum(ms) / len(ms),
             "shardmap_ms_all": ms, "shardmap_launches": counts.read(),

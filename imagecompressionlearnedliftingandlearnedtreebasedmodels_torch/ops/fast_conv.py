@@ -21,15 +21,18 @@
     batched product per group, fp32 sums and an fp32 output;
   * ``MaskedConv2d`` (``ops/masked_conv.py``: the csc conv and the grouped
     PixelCNNs) -> :func:`grouped_conv_taps` under the same rule;
-  * :class:`FastConv5x5` (the lifting P/U convs) -> :func:`conv5x5_s2d` on
-    even planes: the 5x5 conv as a 3x3 conv over the 2x2 polyphase
-    components, its output rounded to bf16 before the fp32 bias.
+  * :class:`FastConv5x5` (the lifting P/U convs): the JAX package's
+    rounding, one bf16 rounding of fp32 sums and an fp32 bias. On even
+    planes that package takes :func:`conv5x5_s2d`, a layout for the TPU's
+    matrix unit; here one cuDNN bf16 5x5 conv rounds the same way, and
+    :func:`conv5x5_s2d` is kept as a function only.
 
   Below 4096 pixels, and inside :func:`disable_pallas`, the grouped forms
-  take ``nn.Conv``'s rounding. The products run on the card as one cuBLAS
-  batched product of bf16 operands with an fp32 output
-  (``torch.bmm(out_dtype=float32)``), on the CPU as the bf16-rounded
-  operands multiplied in fp32.
+  take ``nn.Conv``'s rounding. A plane's size is its global one inside
+  :func:`sharded_planes` (an H-sharded step's row blocks). The products
+  run on the card as one cuBLAS batched product of bf16 operands with an
+  fp32 output (``torch.bmm(out_dtype=float32)``), on the CPU as the
+  bf16-rounded operands multiplied in fp32.
 - :class:`StridedConv2d` and :class:`ConvTranspose2d`: the stride-2 SAME
   conv and its transposed counterpart of ``BasicWavelet``, padded and
   cropped as flax's ``nn.Conv`` / ``nn.ConvTranspose`` do.
@@ -180,23 +183,7 @@ def _s2d_index_map() -> np.ndarray:
     return idx
 
 
-_S2D_SEL = {}
-
-
-def _s2d_selection(device: torch.device, dtype) -> torch.Tensor:
-    """The index map as a one-hot (3*3*2*2*2*2, 25) matrix on ``device``
-    in ``dtype``, made there once: the remap is then one exact product
-    (each row picks one tap or none), whose backward is one product too,
-    where a gather's is a scatter. Made outside inference mode, so that an
-    eval step's first call leaves a tensor that training can use."""
-    key = (device, dtype)
-    if key not in _S2D_SEL:
-        idx = _s2d_index_map().reshape(-1)
-        sel = np.zeros((idx.size, 26), np.float32)
-        sel[np.arange(idx.size), idx] = 1.0
-        with torch.inference_mode(False):
-            _S2D_SEL[key] = torch.from_numpy(sel[:, :25]).to(device, dtype)
-    return _S2D_SEL[key]
+_S2D_IDX = _s2d_index_map().reshape(-1)
 
 
 def s2d_kernel_5x5(weight: torch.Tensor, dtype=None) -> torch.Tensor:
@@ -207,7 +194,8 @@ def s2d_kernel_5x5(weight: torch.Tensor, dtype=None) -> torch.Tensor:
     if dtype is not None:
         weight = weight.to(dtype)
     taps = weight.permute(2, 3, 1, 0).reshape(25, cin * cout)
-    k2 = (_s2d_selection(weight.device, weight.dtype) @ taps).view(
+    taps = torch.cat([taps, taps.new_zeros(1, cin * cout)])    # 25 = none
+    k2 = taps[torch.from_numpy(_S2D_IDX).to(weight.device)].view(
         3, 3, 2, 2, 2, 2, cin, cout)       # (du, dv, a, b, i, j, cin, cout)
     return k2.permute(4, 5, 7, 2, 3, 6, 0, 1).reshape(4 * cout, 4 * cin, 3, 3)
 
@@ -280,10 +268,34 @@ class Conv2d(nn.Module):
         return self.conv(x, self.weight)
 
 
+@contextlib.contextmanager
+def sharded_planes(pixels_by_width):
+    """Inside, :func:`large_plane` reads a tensor of width ``w`` by
+    ``pixels_by_width[w]``, the pixels of the global plane whose row block
+    it is, and not by its own H*W: an H-sharded step's blocks, extended by
+    neighbour rows, then take the form that the unsharded plane takes, as
+    the JAX package's sharded step (jitted on the global shapes) does. A
+    width not in the map raises."""
+    old = getattr(_STATE, "planes", None)
+    _STATE.planes = dict(pixels_by_width)
+    try:
+        yield
+    finally:
+        _STATE.planes = old
+
+
 def large_plane(x: torch.Tensor) -> bool:
     """Whether the matmul forms take ``x`` (the JAX package's rule)."""
-    return x.shape[2] * x.shape[3] >= MATMUL_MIN_PIXELS \
-        and not pallas_disabled()
+    if pallas_disabled():
+        return False
+    planes = getattr(_STATE, "planes", None)
+    h, w = x.shape[2], x.shape[3]
+    if planes is None:
+        return h * w >= MATMUL_MIN_PIXELS
+    if w not in planes:
+        raise ValueError(f"sharded_planes: no global plane of width {w} "
+                         f"(known: {sorted(planes)})")
+    return planes[w] >= MATMUL_MIN_PIXELS
 
 
 class FastGroupedConv1x1(Conv2d):
@@ -302,11 +314,18 @@ class FastGroupedConv1x1(Conv2d):
 
 
 class FastConv5x5(Conv2d):
-    """The lifting P/U 5x5 conv with a compute dtype: :func:`conv5x5_s2d`
-    on even planes. On odd ones the JAX package's ``FastConv5x5`` casts a
-    ``dtype`` conv's output to fp32, and XLA drops that round trip through
-    bf16 (its excess-precision rule), so it returns the fp32 sums of the
-    rounded operands: so does this one, plus the fp32 bias."""
+    """The lifting P/U 5x5 conv with a compute dtype, rounded as the JAX
+    package's ``FastConv5x5``. On even planes that layer takes
+    :func:`conv5x5_s2d`, whose conv output is bf16 and gets the fp32 bias
+    after it: here one bf16 5x5 conv (:func:`conv_lowp`, cuDNN's on the
+    card) with the same one rounding of fp32 sums, then the fp32 bias. The
+    polyphase form spends 8-9 launches a call on layout copies and took
+    261.5 ms of device time a bf16 flagship eval step on an H100 against
+    the plain conv's 178.7 (``chip_smoke.py``'s ``fast_conv_forms``). On
+    odd planes the JAX layer casts a ``dtype`` conv's output to fp32, and
+    XLA drops that round trip through bf16 (its excess-precision rule), so
+    it returns the fp32 sums of the rounded operands: so does this one,
+    plus the fp32 bias."""
 
     def __init__(self, cin: int, cout: int, dtype):
         super().__init__(cin, cout, 5, dtype=dtype)
@@ -315,8 +334,9 @@ class FastConv5x5(Conv2d):
         if x.shape[2] % 2 or x.shape[3] % 2:
             y = F.conv2d(x.to(self.dtype).float(),
                          self.weight.to(self.dtype).float(), padding=2)
-            return _add_bias(y, self.bias)
-        return conv5x5_s2d(x, self.weight, self.bias, self.dtype)
+        else:
+            y = conv_lowp(x, self.weight, self.dtype, padding=2).float()
+        return _add_bias(y, self.bias)
 
 
 class FastConv3x3(nn.Module):

@@ -19,8 +19,7 @@ import torch
 from torch import nn
 
 from . import register_list
-from .fast_conv import (Conv2d, FastConv5x5, conv_lowp, depth_to_space2,
-                        s2d_kernel_5x5, space_to_depth2)
+from .fast_conv import Conv2d, FastConv5x5
 from .math_utils import LIFTING_COEFF
 
 ALPHA, BETA, GAMMA, DELTA, NH_COEFF, NL_COEFF = LIFTING_COEFF
@@ -29,7 +28,7 @@ ALPHA, BETA, GAMMA, DELTA, NH_COEFF, NL_COEFF = LIFTING_COEFF
 class PBlock(nn.Module):
     """4-conv residual block: conv1 -> (tanh) -> conv2 -> (tanh) -> conv3,
     + conv1 output, -> conv4 (fp32 output). With a compute dtype the 5x5
-    convs are ``FastConv5x5`` (the polyphase form on even planes)."""
+    convs are ``FastConv5x5`` (the JAX package's bf16 rounding)."""
 
     def __init__(self, channels: int, hidden: int, filtersize: int = 5,
                  nonlinear: bool = True, dtype=None):
@@ -49,9 +48,6 @@ class PBlock(nn.Module):
         rows outside the image are zero, re-zeroing each intermediate
         before the next conv reproduces the unsharded SAME zero padding
         exactly (the conv biases would otherwise bleed into those rows)."""
-        if isinstance(self.convs[0], FastConv5x5) and mask is None \
-                and not (x.shape[2] % 2 or x.shape[3] % 2):
-            return self._forward_s2d(x)
         m = (lambda t: t) if mask is None else (lambda t: t * mask)
         c0, c1, c2, c3 = self.convs
         out_res = c0(m(x))
@@ -61,27 +57,6 @@ class PBlock(nn.Module):
             t = torch.tanh(t)
         t = c2(m(t)) + out_res
         return c3(m(t)).float()
-
-
-    def _forward_s2d(self, x: torch.Tensor) -> torch.Tensor:
-        """The block with every conv in ``conv5x5_s2d``'s form, the
-        activations kept in the space-to-depth layout from the first conv
-        to the last: the tanh and the residual add commute with it, so
-        the values are those of four separate ``conv5x5_s2d`` calls, less
-        six layout copies (the pairs XLA cancels in the JAX package)."""
-        def conv(c, t):
-            y = conv_lowp(t, s2d_kernel_5x5(c.weight, c.dtype), c.dtype,
-                          padding=1).float()
-            return y + c.bias.repeat(4).view(1, -1, 1, 1)
-
-        c0, c1, c2, c3 = self.convs
-        out_res = conv(c0, space_to_depth2(x))
-        t = torch.tanh(out_res) if self.nonlinear else out_res
-        t = conv(c1, t)
-        if self.nonlinear:
-            t = torch.tanh(t)
-        t = conv(c2, t) + out_res
-        return depth_to_space2(conv(c3, t))
 
 
 class SkipConv(nn.Module):

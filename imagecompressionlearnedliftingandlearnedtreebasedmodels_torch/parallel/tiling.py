@@ -33,6 +33,7 @@ import torch
 
 from ..config import Config, full_fp32, resolve_device
 from ..ops import dwt97
+from ..ops.fast_conv import sharded_planes
 from ..ops.lifting import _merge_rows, _split_rows
 from ..train.loss import RDLossOutput
 from . import mesh as mesh_lib
@@ -334,8 +335,17 @@ def _subband_stage(cfg: Config, codecs, ll: torch.Tensor, highs,
                    mesh: Mesh, e_c: int):
     """The AE encode, entropy model and AE decode of each plane's codec on
     this rank's subband blocks, extended at level l by ``e_c *
-    2^(L-1-l)`` neighbour rows and cropped back. Returns (the info sums of
-    LL and of the details, ll_hat, highs_hat)."""
+    2^(L-1-l)`` neighbour rows and cropped back. The bf16 convs pick their
+    form by the level's global plane (``fast_conv.sharded_planes``), as
+    the unsharded step does. Returns (the info sums of LL and of the
+    details, ll_hat, highs_hat)."""
+    with sharded_planes({t.shape[3]: t.shape[2] * mesh.size * t.shape[3]
+                         for t in [ll, *highs]}):
+        return _subband_stage_blocks(cfg, codecs, ll, highs, mesh, e_c)
+
+
+def _subband_stage_blocks(cfg: Config, codecs, ll: torch.Tensor, highs,
+                          mesh: Mesh, e_c: int):
     levels = cfg.dwtlevels
     ext = [e_c * 2 ** (levels - 1 - lv) for lv in range(levels)]
     ll_x, top_c, _ = _extended_rows(mesh, ll, e_c)

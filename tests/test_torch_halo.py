@@ -5,7 +5,10 @@ learned-lifting ladder against the JAX package's shard_map functions on a
 2-device mesh; ``make_halo_eval_step`` against the port's single-device
 eval step for CDF97 (clrch 3 and 1), learned lifting + factorized, and the
 flagship's widths with each entropy model (ZTsep, onlyEZWT, ZTBlock) at 2
-levels; the refusal of a height that does not divide or is too small;
+levels, and ZTsep in bf16 on a 128x128 image, whose level-1 64x64 planes
+take the matmul conv forms while a rank's extended row block of them
+holds fewer than 4096 pixels (held against the single-device step with
+the same fp32 ladder); the refusal of a height that does not divide or is too small;
 ``tiled_forward`` over the mesh against one device.
 
 Tolerances: the ladders 1e-5 (JAX's own halo tests hold 1e-4 to 1e-5);
@@ -74,6 +77,8 @@ def eval_cases():
         "flagship_ztblock": (dict(
             FLAGSHIP, entropy_layer="DWTConditioned2EntropyLayerZTBlock"), 5,
             image(224, 32, 10)),
+        "flagship_ztsep_bf16": (dict(FLAGSHIP, dtype="bfloat16"), 6,
+                                image(128, 128, 12)),
     }
 
 
@@ -160,7 +165,8 @@ def test_halo_eval_step_matches_single_device(got, name):
     kw, seed, x = got["cases"]["eval"][name]
     cfg = pconfig.Config(**kw).validate()
     want, want_xhat = pstate.make_eval_step(
-        cfg, ranks.seeded_codec(cfg, seed), device="cpu")(ranks.nchw(x))
+        cfg, ranks.halo_reference_codec(cfg, seed), device="cpu")(
+            ranks.nchw(x))
     outs = got[f"eval_{name}"]
     for out, _ in outs:           # every rank reports the global terms
         for i, (rtol, atol) in enumerate(((1e-4, 0), (1e-4, 1e-7),

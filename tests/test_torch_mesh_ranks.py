@@ -4,6 +4,7 @@ gloo rank: it imports no JAX, computes its share of every case and writes
 what it got to ``<outdir>/<name>_rank<r>.pt``, which the test process
 compares against the JAX package and the port's single-device steps."""
 
+import copy
 import os
 
 import numpy as np
@@ -39,6 +40,27 @@ def seeded_codec(cfg, seed):
         for name, p in model.named_parameters():
             if name.endswith("bias"):
                 p.add_(0.05 * torch.randn(p.shape, generator=gen))
+    return model
+
+
+def halo_reference_codec(cfg, seed):
+    """:func:`seeded_codec`, its learned lifting stages (where it has any)
+    swapped for fp32 ones with the same weights: the single-device model
+    that ``make_halo_eval_step`` computes, whose ladder runs in fp32
+    whatever the config's dtype, as the JAX package's does. The subband
+    AEs and the entropy model keep the config's dtype."""
+    model = seeded_codec(cfg, seed)
+    if cfg.netType != "LiftingBasedNeuralWaveletv4" or cfg.dtype == "float32":
+        return model
+    cfg32 = copy.copy(cfg)
+    cfg32.dtype = "float32"
+    codecs = [model.codec] if cfg.clrch == 3 else list(model.codecs)
+    for codec in codecs:
+        tr32 = make_transform(cfg32)
+        tr32.load_state_dict(codec.transform.state_dict())
+        codec.transform.stages = tr32.stages
+        for i, stage in enumerate(tr32.stages):
+            codec.transform.add_module(f"stages_{i}", stage)
     return model
 
 
