@@ -264,6 +264,30 @@ net's 3x3 conv on kernel 1:
            launches gated (4 + 4 a step for the attention transforms), and
            a bitstream of two 256x256 images.
 
+Then the tools (``tools/rd_sweep.py``, ``utils/image_plots.py``,
+``tools/weight_import.py``), the flagship in the sweep's bf16 preset:
+
+32. rd_sweep_retest  the sweep's agent (``make_cfg``, ``sweep_agent``)
+           with ``load_params_snapshot`` of the committed lambda=2000 and
+           6000 snapshots, then its ``test`` on the first 4 dead-leaves
+           images of the held-out set: every plane decodes bit for bit,
+           each image within 2 % bpp and 0.2 dB of the JAX package's CPU
+           coding, 120 kernel-4 launches an image;
+33. rd_sweep_train  the flagship preset at full width, lambda=2000, fresh
+           init, 10 bf16 steps of B=8 x 64x64 through the agent with the
+           corpus's first 16 images in memory (ms a step, kernel 4's
+           forward and dx launches against the reckoning), the checkpoint
+           and the snapshot written, the snapshot reloaded equal to the
+           bit, then two images coded;
+34. imshow  the agent's ``imshow_validation`` montage of one image from the
+           card's encode (bf16, kernel 4, through the agent's validation;
+           then fp32, kernel 1) against the CPU plain versions': fp32 1e-4
+           of max |montage|, bf16 2^-5;
+35. weight_import  the lambda=2000 snapshot carried to the original
+           repo's names and back through ``import_state_dict``: every
+           parameter equal, and the bf16 eval loss on the card equal to
+           the bit to the snapshot's loaded directly.
+
 Then a ``kernels`` line, the card's name and power limit again, and the
 last line ``{"ok": true, "device": {...}}``. Every other line carries
 ``elapsed_s``, the seconds since the script started.
@@ -289,6 +313,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from types import SimpleNamespace
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SNAPSHOT = os.path.join(HERE, "results", "ckpt_snapshots",
@@ -3757,6 +3782,21 @@ def new_path_launch_totals(res):
     return q, alt
 
 
+def tool_launch_totals(res):
+    """Each counter's launches over the counted runs of the tool phases
+    (rd_sweep_retest, rd_sweep_train with its test, imshow, weight_import)."""
+    total = launches_of()
+    runs = [p["launches"] for p in res["rd_sweep_retest"]["points"].values()]
+    runs += [res["rd_sweep_train"]["launches"],
+             res["rd_sweep_train"]["test_launches"]]
+    runs += [res["imshow"][d]["launches"] for d in ("bfloat16", "float32")]
+    runs += [res["weight_import"]["launches"]] * 2
+    for run in runs:
+        for k in total:
+            total[k] += run[k]
+    return total
+
+
 def kernel_entries(conv, v2, lift97, rows, bwd_rows, v2_rows, lift_rows,
                    level_rows, res):
     """The ``kernels`` line: every hand-written kernel with its launches on
@@ -3777,6 +3817,7 @@ def kernel_entries(conv, v2, lift97, rows, bwd_rows, v2_rows, lift_rows,
     v2_eval, v2_train = by(v2_rows, path="eval"), by(v2_rows, path="train")
     tree = tree_launch_totals(res)
     quincunx, alt = new_path_launch_totals(res)
+    tools = tool_launch_totals(res)
     q_fwd, q_bwd = res["quincunx_kernel"]
 
     def per_dx(rows_, key):
@@ -3799,11 +3840,12 @@ def kernel_entries(conv, v2, lift97, rows, bwd_rows, v2_rows, lift_rows,
             "agent_tf32_default": res["agent_tf32_default"]["launches"]
             ["conv3x3_halo"],
             "tree_models": tree["conv3x3_halo"],
-            "quincunx": quincunx["conv3x3_halo"]}
+            "quincunx": quincunx["conv3x3_halo"],
+            "tools": tools["conv3x3_halo"]}
     bf16 = {"main": res["main"]["launches"]["conv_v2"],
             "train": res["train"]["launches"]["conv_v2"],
             "bitstream_bf16": res["bitstream_bf16_launches"],
-            "tree_models": tree["conv_v2"]}
+            "tree_models": tree["conv_v2"], "tools": tools["conv_v2"]}
     tpu = "imagecompressionlearnedliftingandlearnedtreebasedmodels_tpu/"
     ladders = [ladder_entry(k, lift97, lift_rows, level_rows,
                             res["cdf97_main"], res["cdf97_train"], alt[k])
@@ -3867,7 +3909,7 @@ def kernel_entries(conv, v2, lift97, rows, bwd_rows, v2_rows, lift_rows,
         "replaces": "scripts/bench_pallas_v2.py:34",
         "launches": sum(bf16.values()), "launches_by_path": bf16,
         "launches_dx": res["train"]["launches"]["conv_v2_dx"]
-        + tree["conv_v2_dx"],
+        + tree["conv_v2_dx"] + tools["conv_v2_dx"],
         "max_abs_err": max([r["max_abs_err"] for r in v2_rows if "ms" in r]
                            + [r["fwd_max_abs_err"] for r in v2_train]
                            + [r["dx_max_abs_err"] for r in v2_train]),
@@ -4067,7 +4109,6 @@ def sliced_batch_grads(torch, pkg, cfg, batch, n):
     ranks' own, so the gate reads the exchange and not the summation
     order of the whole batch's gradient, which two half-batches summed
     apart move by up to 1e-2 in an ill-conditioned GDN tensor."""
-    from types import SimpleNamespace
     from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.parallel.dp import (
         BatchSliceNoise)
     model = load_model(cfg, pkg).to(DEV).train()
@@ -4136,7 +4177,6 @@ def mesh_rank(mesh, outdir, phases):
     import numpy as np
     import torch
     sys.path.insert(0, HERE)
-    from types import SimpleNamespace
     from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch import (
         config)
     from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.models import (
@@ -4450,6 +4490,367 @@ def new_phases(torch, F, np, pkg, counts, conv):
     return res
 
 
+# --- the tools: the RD sweep driver, the pyramid montage and the import of
+# original checkpoints (phases rd_sweep_retest to weight_import) ----------
+
+SWEEP_LAMBDAS = (2000.0, 6000.0)   # rd_sweep_retest: the committed snapshots
+SWEEP_RETEST_IMAGES = 4            # the first dead-leaves images of the 24
+SWEEP_TRAIN_STEPS = 10             # rd_sweep_train: bf16 steps, B=8 x 64^2
+SWEEP_CORPUS = 16                  # the corpus's first images (depth cut)
+SWEEP_TEST_IMAGES = 2
+IMSHOW_TOL = 1e-4                  # fp32 montage: max |card - CPU| / max
+# bf16 operands: a P/U or AE output that lands within an fp32 ulp of a bf16
+# rounding boundary rounds the other way where the sums run in another
+# order, and the flip travels down the levels. On the CPU, the same encode
+# with every conv summed in float64 moved the bf16 montage by 4.6e-3 of its
+# max (mean 2.6e-4; the fp32 one by 8.3e-7). The bf16 gate is 8 bf16 steps
+# of the [0, 1] montage: a conv that computes something else moves it by
+# tenths.
+IMSHOW_BF16_TOL = 2.0 ** -5
+
+
+def sweep_images(pkg, n):
+    """The first ``n`` dead-leaves images of the held-out set
+    (``rd_heldout.heldout_images``), by name (uint8 HWC)."""
+    count, size, seed = BITSTREAM_IMAGES
+    return {f"natural_{seed}_{k:04d}": img for k, img in enumerate(
+        pkg.data.synthetic_natural_images(count, size, seed=seed)[:n])}
+
+
+def sweep_config(pkg, lam, root, **kw):
+    """The sweep's flagship preset at ``lam`` (bf16, B=8 x 64^2), its
+    epoch cut to ``SWEEP_TRAIN_STEPS`` steps."""
+    steps = SWEEP_TRAIN_STEPS
+    cfg = pkg.rd_sweep.make_cfg("flagship", lam, steps, "", "", root)
+    cfg.steps_per_epoch = steps
+    for k, v in kw.items():
+        setattr(cfg, k, v)
+    return cfg
+
+
+def sweep_test(torch, pkg, counts, agent, n, name):
+    """The agent's ``test`` (the real bitstream of its test images), its
+    launches counted and held to the reckoning; returns the rows."""
+    counts.reset()
+    t0 = time.perf_counter()
+    agent.test()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    want = {k: v * n for k, v in reckon_coding(agent.cfg).items()}
+    expect_launches(counts.read(), want, name)
+    rows = agent.last_test_per_image
+    if len(rows) != n or not all(math.isfinite(r["bpp"])
+                                 and math.isfinite(r["psnr"]) for r in rows):
+        raise AssertionError(f"{name}: {rows}")
+    return rows, seconds, want
+
+
+def phase_rd_sweep_retest(torch, pkg, counts):
+    """``tools/rd_sweep.py``'s retest path on the card: the preset's bf16
+    agent, ``load_params_snapshot`` of the committed lambda=2000 and 6000
+    snapshots (no port snapshot under the run's root), then the agent's
+    ``test`` on the first held-out dead-leaves images, each within the
+    bf16 gates of the JAX package's CPU coding."""
+    images = sweep_images(pkg, SWEEP_RETEST_IMAGES)
+    res = {"phase": "rd_sweep_retest", "images": list(images), "points": {}}
+    bad = []
+    with tempfile.TemporaryDirectory() as root:
+        for lam in SWEEP_LAMBDAS:
+            name = f"flagship_lam{lam:g}"
+            t0 = time.perf_counter()
+            cfg = sweep_config(pkg, lam, root)
+            agent = pkg.rd_sweep.sweep_agent(cfg, [], images, DEV)
+            it = pkg.rd_sweep.load_params_snapshot("flagship", lam, agent,
+                                                   root)
+            load_s = time.perf_counter() - t0
+            rows, seconds, want = sweep_test(torch, pkg, counts, agent,
+                                             len(images), f"{name} retest")
+            targets = flagship_targets(name)
+            for img, r in zip(images, rows):
+                t = targets[img]
+                r.update(image=img, target_bpp=t["bpp"], target_psnr=t["psnr"])
+                if not abs(r["bpp"] - t["bpp"]) \
+                        <= BITSTREAM_BF16_BPP_RTOL * t["bpp"] \
+                        or not abs(r["psnr"] - t["psnr"]) \
+                        <= BITSTREAM_BF16_PSNR_TOL:
+                    bad.append((name, img))
+            res["points"][name] = {
+                "iteration": it, "agent_and_load_s": load_s,
+                "seconds": seconds, "launches": want,
+                "max_bpp_rel_gap": max(abs(r["bpp"] / r["target_bpp"] - 1)
+                                       for r in rows),
+                "max_psnr_gap_db": max(abs(r["psnr"] - r["target_psnr"])
+                                       for r in rows),
+                "per_image": rows}
+            if it <= 0:
+                bad.append((name, "no snapshot loaded"))
+            del agent
+    emit(res)
+    if bad:
+        raise AssertionError(f"rd_sweep_retest: {bad} off the JAX CPU "
+                             f"targets (bpp {BITSTREAM_BF16_BPP_RTOL}, psnr "
+                             f"{BITSTREAM_BF16_PSNR_TOL} dB)")
+    return res
+
+
+def phase_rd_sweep_train(torch, np, pkg, counts):
+    """The sweep's training path on the card: the flagship preset at full
+    width, lambda=2000, fresh init, ``SWEEP_TRAIN_STEPS`` bf16 steps of
+    B=8 x 64^2 through the agent, the corpus in memory; the checkpoint and
+    the snapshot written, the snapshot reloaded into a fresh model equal to
+    the bit (f16 of the trained parameters); then the agent's ``test`` on
+    two held-out images."""
+    n = SWEEP_TRAIN_STEPS
+    with tempfile.TemporaryDirectory() as root:
+        cfg = sweep_config(pkg, 2000.0, root)
+        corpus = pkg.data.synthetic_natural_images(
+            SWEEP_CORPUS, *pkg.rd_sweep.CORPUS[1:])
+        images = sweep_images(pkg, SWEEP_TEST_IMAGES)
+        t0 = time.perf_counter()
+        agent = pkg.rd_sweep.sweep_agent(cfg, corpus, images, DEV)
+        init_s = time.perf_counter() - t0
+        step, times = agent.train_step, []
+
+        def timed_step(*args):
+            t = time.perf_counter()
+            out = step(*args)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            return out
+
+        agent.train_step = timed_step
+        counts.reset()
+        t0 = time.perf_counter()
+        agent.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = counts.read()
+        reckoned = {k: v * n for k, v in reckon_step(
+            cfg, train=True, size=(cfg.patch_size, cfg.patch_size)).items()}
+        expect_launches(launches, reckoned, f"rd_sweep_train's {n} steps")
+        if agent.current_iteration != n:
+            raise AssertionError(f"rd_sweep_train: {agent.current_iteration} "
+                                 f"steps, expected {n}")
+        t0 = time.perf_counter()
+        agent.save_checkpoint(is_best=True)
+        path = pkg.rd_sweep.save_params_snapshot("flagship", 2000.0, agent,
+                                                 root)
+        save_s = time.perf_counter() - t0
+        trained = {k: v.detach().cpu() for k, v in
+                   agent.model.state_dict().items()}
+        fresh = SimpleNamespace(model=pkg.codec.CodecWrapper(cfg),
+                                current_iteration=0)
+        it = pkg.rd_sweep.load_params_snapshot("flagship", 2000.0, fresh, root)
+        unequal = [k for k, v in fresh.model.state_dict().items()
+                   if not torch.equal(v, trained[k].half().float())]
+        with np.load(path) as snap:
+            flat = pkg.weights.flax_params_from_state_dict(trained)
+            unequal += [k for k, v in flat.items()
+                        if snap[k].tobytes() != v.astype("float16").tobytes()]
+            n_keys = len(snap.files)
+        snap_mb = os.path.getsize(path) / 1e6
+        rows, test_s, test_want = sweep_test(torch, pkg, counts, agent,
+                                             len(images), "rd_sweep_train test")
+        ckpts = sorted(os.listdir(cfg.checkpoint_dir))
+    ms = [t * 1e3 for t in times]
+    res = {"phase": "rd_sweep_train", "config": "flagship preset, fresh init",
+           "dtype": cfg.dtype, "lambda": cfg.lambda_,
+           "batch": [cfg.batch_size, 3, cfg.patch_size, cfg.patch_size],
+           "steps": n, "corpus_images": SWEEP_CORPUS,
+           "params": sum(p.numel() for p in agent.model.parameters()),
+           "agent_init_s": init_s, "run_s": run_s,
+           "first_step_ms": ms[0],
+           "ms_per_step": sum(ms[1:]) / len(ms[1:]),
+           "ms_per_step_min": min(ms[1:]), "ms_per_step_all": ms,
+           "launches": launches, "reckoned": reckoned,
+           "save_s": save_s, "snapshot_keys": n_keys, "snapshot_mb": snap_mb,
+           "reloaded_iteration": it, "unequal_after_reload": unequal,
+           "checkpoints": ckpts, "test_s": test_s,
+           "test_launches": test_want, "per_image": rows}
+    emit(res)
+    if unequal or it != n or ckpts != ["checkpoint.pt", "model_best.pt"]:
+        raise AssertionError(f"rd_sweep_train: snapshot reload {unequal[:4]} "
+                             f"(iteration {it}), checkpoints {ckpts}")
+    del agent, fresh
+    return res
+
+
+def imshow_montage(pkg, agent, batch):
+    """The montage ``agent``'s ``imshow_validation`` hook draws of
+    ``batch``, and the path it wrote."""
+    plots = pkg.image_plots
+    real, canvases = plots.wavelet_pyramid, []
+
+    def record(*a, **k):
+        canvases.append(real(*a, **k))
+        return canvases[-1]
+
+    plots.wavelet_pyramid = record
+    try:
+        if isinstance(agent, pkg.loop.LiftingDWTAgent):
+            agent.validate()
+            path = None
+        else:
+            path = pkg.loop.LiftingDWTAgent._save_wavelet_pyramid(agent, batch)
+    finally:
+        plots.wavelet_pyramid = real
+    if len(canvases) != 1:
+        raise AssertionError(f"imshow: {len(canvases)} montages drawn")
+    return canvases[0], path
+
+
+def phase_imshow(torch, np, pkg, counts):
+    """The agent's ``imshow_validation`` on the card: the sweep preset's
+    bf16 agent with the lambda=2000 snapshot validates on one held-out
+    image, its hook encoding the Y plane through kernel 4 (the montage
+    written as a figure, or as ``.npy`` where matplotlib is missing); the
+    same hook on the CPU plain versions, and both again in fp32 (kernel
+    1), each montage held to the CPU's."""
+    images = sweep_images(pkg, 1)
+    batch = next(iter(images.values()))[None].astype("float32") / 255.0
+    planes = coding_conv_launches(pkg.config.flagship_config()) // 3
+    res = {"phase": "imshow", "image": list(images)}
+    bad = []
+    with tempfile.TemporaryDirectory() as root:
+        for dtype, key, tol in (("bfloat16", "conv_v2", IMSHOW_BF16_TOL),
+                                ("float32", "conv3x3_halo", IMSHOW_TOL)):
+            cfg = sweep_config(pkg, 2000.0, root, dtype=dtype,
+                               imshow_validation=True,
+                               out_dir=os.path.join(root, dtype))
+            os.makedirs(cfg.out_dir)
+            agent = pkg.rd_sweep.sweep_agent(cfg, [], images, DEV)
+            pkg.rd_sweep.load_params_snapshot("flagship", 2000.0, agent, root)
+            cpu = SimpleNamespace(
+                cfg=copy.copy(cfg), model=copy.deepcopy(agent.model).cpu(),
+                device=torch.device("cpu"), current_iteration=0,
+                logger=agent.logger)
+            cpu.cfg.out_dir = os.path.join(root, f"{dtype}_cpu")
+            os.makedirs(cpu.cfg.out_dir)
+            if dtype == "bfloat16":   # the agent's own validation
+                counts.reset()
+                card, _ = imshow_montage(pkg, agent, batch)
+                torch.cuda.synchronize()
+                launches = counts.read()
+                want = {k: v + (planes if k == key else 0) for k, v in
+                        reckon_step(cfg, size=(256, 256)).items()}
+            else:
+                card_self = SimpleNamespace(
+                    cfg=cfg, model=agent.model, device=agent.device,
+                    current_iteration=0, logger=agent.logger)
+                counts.reset()
+                card, _ = imshow_montage(pkg, card_self, batch)
+                torch.cuda.synchronize()
+                launches = counts.read()
+                want = launches_of(conv=planes)
+            expect_launches(launches, want, f"imshow {dtype}")
+            want_canvas, _ = imshow_montage(pkg, cpu, batch)
+            written = sorted(os.listdir(cfg.out_dir))
+            err = float(np.abs(card - want_canvas).max()
+                        / np.abs(want_canvas).max())
+            res[dtype] = {"shape": list(card.shape), "max_rel_err": err,
+                          "mean_abs_err": float(np.abs(card - want_canvas)
+                                                .mean()),
+                          "share_over_1e-4": float(
+                              (np.abs(card - want_canvas) > 1e-4).mean()),
+                          "tol": tol, "launches": launches, "written": written}
+            if not err <= tol or card.shape != (256, 256) \
+                    or not np.isfinite(card).all() or not written:
+                bad.append(dtype)
+            del agent, cpu
+    emit(res)
+    if bad:
+        raise AssertionError(f"imshow: the card's montage off the CPU's in "
+                             f"{bad}")
+    return res
+
+
+def original_state_dict(np, pkg, model):
+    """The port model's parameters under the original repo's names and
+    layouts: the inverse of ``tools/weight_import.py``'s rules, applied to
+    the flax layout."""
+    tree = pkg.weights.unflatten_params(
+        pkg.weights.flax_params_from_state_dict(model.state_dict()))
+    out = {}
+    for torch_key, path, kind in pkg.weight_import.build_mapping(model.cfg):
+        leaf = tree
+        for k in path.split("/"):
+            leaf = leaf[k]
+        if kind == "conv":
+            w = leaf.transpose(3, 2, 0, 1)
+        elif kind == "convT" or isinstance(kind, tuple):
+            g = 1 if kind == "convT" else kind[1]
+            kh, kw, i_g, o = leaf.shape
+            w = leaf.reshape(kh, kw, i_g, g, o // g).transpose(3, 2, 4, 0, 1)
+            w = w.reshape(g * i_g, o // g, kh, kw)[:, :, ::-1, ::-1]
+        elif kind == "skip":
+            if not (leaf == leaf[:, :1]).all():
+                raise AssertionError(f"{path}: taps differ across channels")
+            w = leaf[:, 0].reshape(1, 1, 3, 1)
+        elif kind == "flat1":
+            w = leaf.reshape(1, 1, 1, 1)
+        else:
+            w = leaf
+        out[torch_key] = np.ascontiguousarray(w)
+    return out
+
+
+def phase_weight_import(torch, np, pkg, counts):
+    """The lambda=2000 snapshot carried to the original repo's names and
+    back through ``import_state_dict`` into a fresh bf16 flagship: every
+    parameter equal to the snapshot's, and the eval loss on the card equal
+    to the bit to the snapshot loaded directly (kernel 4, cuDNN
+    deterministic)."""
+    cfg = pkg.config.flagship_config(lambda_=2000.0, dtype="bfloat16")
+    direct = load_model(cfg, pkg)
+    t0 = time.perf_counter()
+    sd = original_state_dict(np, pkg, direct)
+    fresh = pkg.codec.CodecWrapper(cfg)
+    imported, unmatched = pkg.weight_import.import_state_dict(fresh, sd)
+    fresh.load_state_dict(imported, strict=True)
+    import_s = time.perf_counter() - t0
+    unequal = [k for k, v in direct.state_dict().items()
+               if not torch.equal(v, fresh.state_dict()[k])]
+    batch = train_batch(torch, np, pkg, 2, 256, seed=3).to(DEV)
+    losses, launches = [], []
+    with tf32_off(torch, deterministic=True):
+        for model in (direct, fresh):
+            step = pkg.state.make_eval_step(cfg, model, DEV)
+            counts.reset()
+            out, _ = step(batch)
+            torch.cuda.synchronize()
+            launches.append(counts.read())
+            losses.append(float(out.loss))
+    n = sum(conv_shapes(cfg, (256, 256)).values())
+    for got in launches:
+        expect_launches(got, launches_of(v2=n), "weight_import eval step")
+    res = {"phase": "weight_import", "config": "flagship_lam2000",
+           "dtype": cfg.dtype, "original_keys": len(sd),
+           "unmatched": unmatched, "import_s": import_s,
+           "unequal_parameters": unequal, "batch": [2, 3, 256, 256],
+           "loss_direct": losses[0], "loss_imported": losses[1],
+           "launches": launches[0]}
+    emit(res)
+    if unmatched or unequal or losses[0] != losses[1] \
+            or not math.isfinite(losses[0]):
+        raise AssertionError(f"weight_import: unmatched {unmatched[:4]}, "
+                             f"unequal {unequal[:4]}, losses {losses}")
+    return res
+
+
+def tool_phases(torch, np, pkg, counts):
+    """The tools (``rd_sweep_retest`` to ``weight_import``)."""
+    res = {}
+    with tf32_off(torch):
+        res["rd_sweep_retest"] = phase_rd_sweep_retest(torch, pkg, counts)
+        torch.cuda.empty_cache()
+        res["rd_sweep_train"] = phase_rd_sweep_train(torch, np, pkg, counts)
+        torch.cuda.empty_cache()
+        res["imshow"] = phase_imshow(torch, np, pkg, counts)
+    res["weight_import"] = phase_weight_import(torch, np, pkg, counts)
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
 
@@ -4461,7 +4862,6 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     import torch.nn.functional as F
-    from types import SimpleNamespace
     from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch import (
         cli, config)
     from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.coding import (
@@ -4478,11 +4878,11 @@ def main() -> int:
     from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.parallel import (
         mesh, tiling)
     from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.tools import (
-        rd_heldout, weights)
+        rd_heldout, rd_sweep, weight_import, weights)
     from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.train import (
         checkpoint, data, loop, loss, postprocess_loop, state)
     from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.utils import (
-        heartbeat)
+        heartbeat, image_plots)
     pkg = SimpleNamespace(cli=cli, config=config, codec=codec, weights=weights,
                           checkpoint=checkpoint, data=data, loss=loss,
                           state=state, bottleneck=bottleneck,
@@ -4492,7 +4892,9 @@ def main() -> int:
                           tiled_coder=tiled_coder, rd_heldout=rd_heldout,
                           loop=loop, fast_conv=fast_conv, lifting=lifting,
                           masked_conv=masked_conv, mesh=mesh, tiling=tiling,
-                          heartbeat=heartbeat)
+                          heartbeat=heartbeat, rd_sweep=rd_sweep,
+                          weight_import=weight_import,
+                          image_plots=image_plots)
     counts = Counts(conv, v2, lift97)
     t_start = time.perf_counter()
 
@@ -4611,6 +5013,7 @@ def main() -> int:
             phase_quincunx_agent(torch, pkg, counts)
         res["alt"] = phase_alt_transforms(torch, numpy, pkg, counts)
     torch.cuda.empty_cache()
+    res.update(tool_phases(torch, numpy, pkg, counts))
 
     v2_eval = [r for r in v2_rows if r["path"] == "eval"]
     v2_train = [r for r in v2_rows if r["path"] == "train"]

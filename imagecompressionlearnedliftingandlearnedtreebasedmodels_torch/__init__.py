@@ -29,8 +29,10 @@ The real bitstream codes with the host C++ of ``csrc/*.cpp``.
                 coder (the agent's ``test`` mode) and its tiled form
 - ``parallel``  overlapped tiling of a high-resolution image
 - ``cli``       ``python -m ..._torch.cli config.json``: run an experiment
-- ``utils``     heartbeat, phase timers, device trace
-- ``tools``     carrying weights between the flax tree and the port
+- ``utils``     heartbeat, phase timers, device trace, image plots, mailer
+- ``tools``     carrying weights between the flax tree and the port, the
+                RD sweep and RD plots, original-checkpoint import,
+                montages and patches
 """
 
 __version__ = "0.1.0"

@@ -19,6 +19,8 @@ and evaluates with ``make_dp_eval_step``, or with ``parallel/tiling.py``'s
 ``make_halo_eval_step`` under ``halo_eval``; rank 0 alone logs, saves the
 checkpoints (plain state dicts, so a mesh run and a single-device run
 resume from each other) and runs ``test``.
+``imshow_validation`` saves the wavelet-pyramid montage of the first
+validation image at each validation (``utils/image_plots.py``).
 ``steps_per_call`` is accepted and ignored: it chains steps to hide a
 TPU's dispatch latency, and every step here is dispatched on its own.
 fp32 runs at full fp32 precision (``config.full_fp32``: TF32 off).
@@ -72,9 +74,6 @@ class LiftingDWTAgent:
             self.logger.info(
                 f"steps_per_call={cfg.steps_per_call} is ignored: every step "
                 "is dispatched on its own")
-        if cfg.imshow_validation:
-            self.logger.info("imshow_validation is ignored: the pyramid plots "
-                             "are not ported yet (ROADMAP Queue A item 14)")
         # liveness beacon (a no-op unless LIFTING_HEARTBEAT is set)
         self.heartbeat = Heartbeat()
         init_gen = torch.Generator().manual_seed(cfg.seed)
@@ -242,9 +241,38 @@ class LiftingDWTAgent:
         if cfg.phase_timers:
             self.logger.info("phase timers:\n" + self.timers.report())
 
+    @torch.no_grad()
+    def _save_wavelet_pyramid(self, batch: np.ndarray) -> str:
+        """``imshow_validation``: save the nested wavelet-pyramid montage of
+        the first validation image, encoded on the agent's device (for
+        per-plane models the Y plane's). Returns the path written: a figure,
+        or the montage as ``.npy`` where matplotlib is missing."""
+        from ..ops import color
+        from ..utils.image_plots import save_pyramid, wavelet_pyramid
+
+        x = _to_nchw(batch).to(self.device)
+        if self.cfg.clrch == 3:
+            codec, x = self.model.codec, x - 0.5
+        else:
+            y = color.shift_ycbcr(color.rgb_to_ycbcr(x))
+            codec, x = self.model.codecs[0], y[:, :1]
+        xe, xo_list = codec.transform.encode(x)
+        canvas = wavelet_pyramid(xe, xo_list)
+        out = save_pyramid(canvas, os.path.join(
+            self.cfg.out_dir or self.cfg.log_dir or ".",
+            f"wavelet_pyramid_it{self.current_iteration}.png"))
+        self.logger.info(f"wavelet pyramid montage -> {out}"
+                         + (" (matplotlib missing: the montage array)"
+                            if out.endswith(".npy") else ""))
+        return out
+
     def validate(self) -> float:
         psnrs, r1s, r2s = [], [], []
+        shown = not (self.cfg.imshow_validation and self.is_main)
         for batch in self.data.valid_batches():
+            if not shown:
+                self._save_wavelet_pyramid(batch)
+                shown = True
             out, _ = self.eval_step(_to_nchw(batch))
             self.heartbeat.beat()
             loss, mse, rate1, rate2 = (float(v) for v in out)

@@ -40,6 +40,11 @@ def psnr(x, xhat, peak: float = 1.0) -> torch.Tensor:
     return torch.mean(-10.0 * torch.log10(mse / (peak ** 2)))
 
 
+def rate_loss(self_informations) -> torch.Tensor:
+    """Mean self-information: the original's rate-only training loss."""
+    return torch.mean(self_informations)
+
+
 def valid_rd_loss(x, xhat, info_xe, info_xo_list: List, lambda_: float):
     """PSNR-based validation objective: ``(psnr + lambda * rate, psnr,
     rate)``."""

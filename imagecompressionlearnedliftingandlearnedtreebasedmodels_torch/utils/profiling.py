@@ -1,5 +1,5 @@
-"""Per-phase wall-clock timers and a device trace window on
-``torch.profiler``."""
+"""Per-phase wall-clock timers, a device trace window on
+``torch.profiler`` and named regions in its traces."""
 
 from __future__ import annotations
 
@@ -59,3 +59,22 @@ class DeviceTrace:
         self._prof.stop()
         self._prof.export_chrome_trace(self.path)
         return self.path
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: str, device="cuda") -> Iterator[str]:
+    """A :class:`DeviceTrace` around the block; yields the path of the
+    ``trace.json`` it writes when the block ends."""
+    trace = DeviceTrace(log_dir, device)
+    trace.start()
+    try:
+        yield trace.path
+    finally:
+        trace.stop()
+
+
+@contextlib.contextmanager
+def annotate(name: str) -> Iterator[None]:
+    """Named region visible in profiler traces."""
+    with torch.profiler.record_function(name):
+        yield

@@ -191,3 +191,48 @@ def test_cdf97_config_builds_and_needs_cuda_unless_cpu_is_asked(monkeypatch):
     out, xhat = state.make_eval_step(cfg, model, device="cpu")(
         torch.rand(1, 3, 32, 48))
     assert torch.isfinite(out.loss) and xhat.shape == (1, 3, 32, 48)
+
+
+JAX_PACKAGE = BANNED[-1]
+# JAX package sources without a port module of the same path, each with
+# where it went or why it has none
+NOT_AT_THE_SAME_PATH = {
+    "ops/pallas_conv.py": "ops/conv3x3_halo.py (the 3x3 conv kernel, "
+                          "csrc/conv3x3_halo.cu)",
+    "coding/csrc/rans.cpp": "csrc/rans.cpp (a byte copy)",
+    "coding/csrc/rans_core.h": "csrc/rans_core.h (a byte copy)",
+    "coding/csrc/wavefront_ctx.cpp": "csrc/wavefront_ctx.cpp (a byte copy)",
+    "utils/compile_cache.py": "not ported, by design: XLA's persistent "
+                              "compilation cache",
+}
+
+
+def _jax_package_sources():
+    base = os.path.join(ROOT, JAX_PACKAGE)
+    for d, _, files in os.walk(base):
+        for f in files:
+            if f.endswith((".py", ".cpp", ".h", ".json")):
+                yield os.path.relpath(os.path.join(d, f), base)
+
+
+def test_every_jax_module_has_a_port_counterpart():
+    missing = [rel for rel in sorted(_jax_package_sources())
+               if not os.path.exists(os.path.join(ROOT, PORT, rel))
+               and rel not in NOT_AT_THE_SAME_PATH]
+    assert missing == []
+    for rel, where in NOT_AT_THE_SAME_PATH.items():
+        assert os.path.exists(os.path.join(ROOT, JAX_PACKAGE, rel)), rel
+        target = where.split(" ")[0]
+        if not where.startswith("not ported"):
+            assert os.path.exists(os.path.join(ROOT, PORT, target)), target
+            assert not os.path.exists(os.path.join(ROOT, PORT, rel)), rel
+
+
+def test_no_port_source_says_not_ported_yet():
+    said = []
+    for path in _sources():
+        with open(path) as fh:
+            said += [f"{os.path.relpath(path, ROOT)}:{n}"
+                     for n, line in enumerate(fh, 1)
+                     if "not ported yet" in line.lower()]
+    assert said == []
