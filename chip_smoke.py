@@ -54,6 +54,22 @@ exit code and no result line:
            train steps (ms/step, patches/s, MP/s, every loss, conv_v2
            launches per step against the number reckoned from the model,
            peak memory), then one more step under torch.profiler;
+10a. train_chained_parity  ``steps_per_call``: the CUDA graph of k=3 fp32
+           flagship train steps (``make_chained_train_step``, lambda=2000
+           weights, B=2 x 128x128, cuDNN deterministic) replayed twice
+           against 6 eager ``make_train_step`` calls from the same state
+           (Adam capturable in both): every row within 1e-6 relative and
+           every parameter within 1e-6 of its tensor's max |p| (bit
+           equality expected); the second replay's rows differ from the
+           first's on the same batches and the generator ends where the
+           eager steps leave theirs (the noise advanced); kernel 1's
+           launches: the capture's 2 eager warm-up steps and 3 a replay;
+10b. train_chained  the bf16 train step of ``train`` as one graph of k=4
+           steps: the capture's seconds, ms a step over 3 replays beside
+           ``train``'s eager ms a step, one replay profiled (the device's
+           idle share), peak memory, kernel 4's launches (4 x 276 a replay,
+           recorded at capture; the counters add them once a replay); the
+           rows finite;
 11. agent  the CLI on a temporary copy of
            ``configs/flagship_lifting_ztsep.json`` (batch 2, patch 128,
            fp32, lambda 2000, 4 steps an epoch, 2 epochs): train, validate,
@@ -140,7 +156,10 @@ path's), tiled coding and the entry points' fp32:
            1e-2 a tensor, 1e-3 on the L2, cuDNN deterministic; the gap to
            the whole batch's recorded), the ranks' parameters equal to
            the bit after 3 steps, the shardmap step timed, kernel 1's
-           launches (forward and dx) counted in each rank;
+           launches (forward and dx) counted in each rank; on the NCCL rank
+           ``dp_train_nccl_chained``: ``make_chained_shardmap_train_step``
+           with k=2 (one graph, the all-reduces captured in it) against 2
+           shardmap steps one after another, parameters equal to the bit;
 13i. halo_eval_flagship, halo_eval_cdf97  one 2048x2048 image H-sharded
            over two gloo ranks through ``make_halo_eval_step``: RD terms
            1e-4 and xhat's mean |d| 1e-5 of the single-device eval step;
@@ -274,10 +293,12 @@ Then the tools (``tools/rd_sweep.py``, ``utils/image_plots.py``,
            each image within 2 % bpp and 0.2 dB of the JAX package's CPU
            coding, 120 kernel-4 launches an image;
 33. rd_sweep_train  the flagship preset at full width, lambda=2000, fresh
-           init, 10 bf16 steps of B=8 x 64x64 through the agent with the
-           corpus's first 16 images in memory (ms a step, kernel 4's
-           forward and dx launches against the reckoning), the checkpoint
-           and the snapshot written, the snapshot reloaded equal to the
+           init, 20 bf16 steps of B=8 x 64x64 through the agent in two
+           chunks of the preset's ``steps_per_call`` 10 (one graph replay
+           a chunk) with the corpus's first 16 images in memory (the
+           capture's seconds, ms a chunk and a step, kernel 4's forward
+           and dx launches against the reckoning: the capture's warm-up
+           steps and 10 a replay), the checkpoint and the snapshot written, the snapshot reloaded equal to the
            bit, then two images coded;
 34. imshow  the agent's ``imshow_validation`` montage of one image from the
            card's encode (bf16, kernel 4, through the agent's validation;
@@ -327,6 +348,8 @@ TRAIN_WARMUP, TRAIN_STEPS = 2, 5
 TREE_TRAIN_WARMUP = 1            # the tree models' bf16 train steps
 TRAIN_LR = 1e-4
 PARITY_B, PARITY_P = 2, 128      # the train step compared with the CPU's
+CHAINED_PARITY_K = 3             # train_chained_parity: steps a replay
+CHAINED_K, CHAINED_REPLAYS = 4, 3  # train_chained: steps a replay, replays
 AGENT = dict(batch_size=2, patch_size=128, dtype="float32", lambda_=2000.0,
              multi_agent=False, steps_per_epoch=4, max_epoch=2)
 # the images each validation pass of an agent run in this process takes, of
@@ -414,6 +437,10 @@ DK_TOL = {"float32": 1e-4,  # dk: a full-fp32 product in another order
           # matmul: only the order and the rounding of the fp32 sums differ
           "bfloat16": 1e-3}
 PARITY_RTOL = 1e-4  # loss, mse, rates: card vs CPU, fp32
+# the graph-chained step against the same steps taken eagerly on the card:
+# the same kernels on the same inputs in the same order, so bit equality is
+# expected; rows relative, parameters of each tensor's max |p|
+CHAINED_RTOL = 1e-6
 # Gradients, card vs CPU, per tensor: max |g_card - g_cpu| / max |g_cpu|.
 # The CPU's fp32 gradient is itself no reference to 1e-3: against the same
 # step evaluated in float64 (tools/grad_conditioning.py) its worst tensor is
@@ -1206,20 +1233,33 @@ def phase_main(torch, np, pkg, counts):
     return res, step, batch
 
 
+def device_events(torch, prof):
+    """{name: [ms, calls]} of the device-side activity a finished
+    torch.profiler recorded, read from its raw events (not averaged into
+    FunctionEvents, which for a step of tens of thousands of kernels took
+    longer than the step); device-side annotations are not activity."""
+    from torch.autograd import DeviceType
+    out = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA or e.is_user_annotation():
+            continue
+        row = out.setdefault(e.name(), [0.0, 0])
+        row[0] += e.duration_ns() / 1e6
+        row[1] += 1
+    return out
+
+
 def phase_profile(torch, run_step, step_ms, name="profile"):
     """One step under torch.profiler: device busy ms (the sum of the
     device-side events' times) and the fifteen largest device-side events.
     Only the device's activity is recorded: a host-bound step's host ops
     run to hundreds of thousands of events, whose averaging took longer
     than the step itself."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run_step()
         torch.cuda.synchronize()
-    events = [(e.key, e.self_device_time_total / 1e3, e.count)
-              for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
+    events = [(k, ms, n) for k, (ms, n) in device_events(torch, prof).items()]
     busy = sum(ms for _, ms, _ in events)
     top = sorted(events, key=lambda e: -e[1])[:15]
     emit({"phase": name, "device_busy_ms": busy, "step_ms": step_ms,
@@ -1284,6 +1324,154 @@ def phase_train(torch, np, pkg, counts):
            "reckoned_launches_per_step": 2 * n_conv}
     emit(res)
     return res, run_step
+
+
+def u8_chunk(np, pkg, k, n, size, seed):
+    """A loader-shaped uint8 chunk ``(k, n, size, size, 3)``: ``n`` seeded
+    dead-leaves images, the same ones at every step."""
+    imgs = np.stack(pkg.data.synthetic_natural_images(n, size, seed=seed))
+    return np.ascontiguousarray(np.broadcast_to(imgs, (k,) + imgs.shape))
+
+
+def chunk_step_input(torch, np, chunk, i):
+    """Step ``i`` of ``chunk`` as ``make_train_step`` takes it from the
+    agent: the loader's float conversion, an NCHW view of NHWC memory."""
+    return torch.from_numpy(chunk[i].astype(np.float32) / 255.0).permute(
+        0, 3, 1, 2)
+
+
+def phase_train_chained_parity(torch, np, pkg, counts):
+    """The graph-chained step against eager steps, fp32 flagship from the
+    lambda=2000 weights, cuDNN deterministic: two replays of k=3 steps
+    against 6 ``make_train_step`` calls from the same parameters, Adam
+    state (both capturable), batches and generator seed. Every row within
+    CHAINED_RTOL relative, every parameter within CHAINED_RTOL of its
+    tensor's max |p| (bit equality is expected); the second replay's rows
+    differ from the first's on the same batches and the generator ends
+    where the eager steps leave theirs (the noise advanced a replay)."""
+    k = CHAINED_PARITY_K
+    cfg = pkg.config.flagship_config(lambda_=2000.0, learning_rate=TRAIN_LR,
+                                     steps_per_call=k)
+    chunk = u8_chunk(np, pkg, k, PARITY_B, PARITY_P, seed=2)
+    models, gens = [], []
+    for _ in range(2):
+        model = load_model(cfg, pkg).to(DEV)
+        models.append((model, pkg.state.make_optimizer(cfg, model,
+                                                       capturable=True)))
+        gens.append(torch.Generator(device=DEV).manual_seed(3))
+    chained = pkg.state.make_chained_train_step(cfg, *models[0], DEV)
+    step = pkg.state.make_train_step(cfg, *models[1], DEV)
+    counts.reset()
+    got = []
+    for _ in range(2):
+        got.append(chained(chunk, gens[0], TRAIN_LR, 1.0).cpu())
+    torch.cuda.synchronize()
+    launches = counts.read()
+    want = torch.tensor([[float(v) for v in step(
+        chunk_step_input(torch, np, chunk, i), gens[1], TRAIN_LR, 1.0)[0]]
+        for _ in range(2) for i in range(k)])
+    got_rows = torch.cat(got)
+    row_gap = float(((got_rows - want).abs() / want.abs()).max())
+    gaps = {n: float((a.detach() - b.detach()).abs().max()
+                     / b.detach().abs().max().clamp_min(1e-30))
+            for (n, a), (_, b) in zip(models[0][0].named_parameters(),
+                                      models[1][0].named_parameters())}
+    worst = max(gaps, key=gaps.get)
+    per_step = reckon_step(cfg, train=True)
+    per_replay = {k_: v * k for k_, v in per_step.items()}
+    # the capture's eager warm-up steps launch the kernels too
+    warmup = min(pkg.state.GraphChain.WARMUP_STEPS, k)
+    (key, cap), = chained.captured.items()
+    res = {"phase": "train_chained_parity", "dtype": "float32",
+           "batch": [PARITY_B, 3, PARITY_P, PARITY_P], "k": k, "replays": 2,
+           "capture_s": cap["capture_s"], "rows_chained": got_rows.tolist(),
+           "rows_eager": want.tolist(), "row_max_rel_gap": row_gap,
+           "param_worst": worst, "param_worst_gap": gaps[worst],
+           "params_equal": sum(g == 0.0 for g in gaps.values()),
+           "param_tensors": len(gaps),
+           "rows_differ_between_replays": not torch.equal(got[0], got[1]),
+           "generator_state_equal": torch.equal(gens[0].get_state(),
+                                                gens[1].get_state()),
+           "launches": launches, "launches_per_replay": per_replay,
+           "warmup_steps": warmup}
+    emit(res)
+    if not (row_gap <= CHAINED_RTOL and gaps[worst] <= CHAINED_RTOL):
+        raise AssertionError(f"train_chained_parity: rows {row_gap:.3e}, "
+                             f"{worst} {gaps[worst]:.3e}")
+    if not (res["rows_differ_between_replays"]
+            and res["generator_state_equal"]):
+        raise AssertionError("train_chained_parity: the noise did not "
+                             "advance between replays")
+    expect_launches(launches, {k_: (2 * k + warmup) * v
+                               for k_, v in per_step.items()},
+                    "train_chained_parity's warm-up and 2 replays")
+    return res
+
+
+def phase_train_chained(torch, np, pkg, counts, eager):
+    """The bf16 flagship train step at B=8 256x256 from the lambda=2000
+    weights as one CUDA graph of k=4 steps (``make_chained_train_step``):
+    the capture's seconds, ms a step over ``CHAINED_REPLAYS`` replays
+    beside ``phase_train``'s eager ms a step in this process, one replay
+    profiled (the device's idle share), peak memory, kernel 4's launches a
+    replay (4 x 276 recorded at capture) and in all; the rows finite."""
+    k = CHAINED_K
+    cfg = pkg.config.flagship_config(dtype="bfloat16", lambda_=2000.0,
+                                     learning_rate=TRAIN_LR, steps_per_call=k)
+    chunk = u8_chunk(np, pkg, k, TRAIN_B, TRAIN_P, seed=1)
+    model = load_model(cfg, pkg).to(DEV)
+    chained = pkg.state.make_chained_train_step(
+        cfg, model, pkg.state.make_optimizer(cfg, model, capturable=True),
+        DEV)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+
+    def replay():
+        return chained(chunk, gen, TRAIN_LR, 1.0)
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    first = replay().cpu()
+    first_s = time.perf_counter() - t0
+    (_, cap), = chained.captured.items()
+    counts.reset()
+    rows = [first]
+    ms = []
+    for _ in range(CHAINED_REPLAYS):
+        t0 = time.perf_counter()
+        rows.append(replay().cpu())
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = counts.read()
+    per_step = reckon_step(cfg, train=True, size=(TRAIN_P, TRAIN_P))
+    per_replay = {k_: v * k for k_, v in per_step.items()}
+    expect_launches(launches, {k_: CHAINED_REPLAYS * v
+                               for k_, v in per_replay.items()},
+                    f"{CHAINED_REPLAYS} replays of the chained bf16 step")
+    if cap["launches"]["conv_v2.launches"] != per_replay["conv_v2"]:
+        raise AssertionError(f"train_chained: the graph holds "
+                             f"{cap['launches']} kernel launches")
+    all_rows = torch.cat(rows)
+    if not bool(torch.isfinite(all_rows).all()):
+        raise AssertionError(f"train_chained: non-finite rows {all_rows}")
+    mean_ms = sum(ms) / len(ms)
+    res = {"phase": "train_chained", "config": "flagship_lam2000",
+           "dtype": "bfloat16", "batch": [TRAIN_B, 3, TRAIN_P, TRAIN_P],
+           "k": k, "capture_s": cap["capture_s"],
+           "first_call_s": first_s, "replays": CHAINED_REPLAYS,
+           "ms_per_replay_all": ms, "ms_per_replay": mean_ms,
+           "ms_per_step": mean_ms / k, "ms_per_step_min": min(ms) / k,
+           "eager_ms_per_step": eager["ms_per_step"],
+           "eager_ms_per_step_min": eager["ms_per_step_min"],
+           "steps_per_s": 1e3 * k / mean_ms,
+           "patches_per_s": 1e3 * k * TRAIN_B / mean_ms,
+           "capture_warmup_s": cap["warmup_s"],
+           "capture_record_s": cap["record_s"],
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "reserved_gb": torch.cuda.memory_reserved() / 1e9,
+           "launches": launches, "launches_per_replay": cap["launches"],
+           "loss": all_rows[:, 0].tolist()}
+    emit(res)
+    phase_profile(torch, replay, mean_ms, "train_chained_profile")
+    return res
 
 
 @contextlib.contextmanager
@@ -3828,6 +4016,8 @@ def kernel_entries(conv, v2, lift97, rows, bwd_rows, v2_rows, lift_rows,
                res["pp_main"]["train"]["launches"],
                res["pp_agent"]["launches"], res["pp_agent_test"]["launches"]]
     fp32 = {"parity": res["parity"], "train_parity": res["train_parity"][0],
+            "train_chained_parity": res["train_chained_parity"]["launches"]
+            ["conv3x3_halo"],
             "main_fp32": res["main"]["fp32_launches"]["conv3x3_halo"],
             "bitstream": res["bitstream_launches"],
             "agent": res["agent"]["first_run"]["launches"]["conv3x3_halo"],
@@ -3844,6 +4034,7 @@ def kernel_entries(conv, v2, lift97, rows, bwd_rows, v2_rows, lift_rows,
             "tools": tools["conv3x3_halo"]}
     bf16 = {"main": res["main"]["launches"]["conv_v2"],
             "train": res["train"]["launches"]["conv_v2"],
+            "train_chained": res["train_chained"]["launches"]["conv_v2"],
             "bitstream_bf16": res["bitstream_bf16_launches"],
             "tree_models": tree["conv_v2"], "tools": tools["conv_v2"]}
     tpu = "imagecompressionlearnedliftingandlearnedtreebasedmodels_tpu/"
@@ -3878,6 +4069,7 @@ def kernel_entries(conv, v2, lift97, rows, bwd_rows, v2_rows, lift_rows,
         "source": os.path.relpath(conv.SOURCE, HERE),
         "replaces": tpu + "ops/pallas_conv.py:137",
         "launches": res["train_parity"][1]
+        + res["train_chained_parity"]["launches"]["conv3x3_halo_dx"]
         + res["agent"]["first_run"]["launches"]["conv3x3_halo_dx"]
         + tree["conv3x3_halo_dx"] + quincunx["conv3x3_halo_dx"]
         + sum(r["conv3x3_halo_dx"] for r in pp_runs),
@@ -3909,6 +4101,7 @@ def kernel_entries(conv, v2, lift97, rows, bwd_rows, v2_rows, lift_rows,
         "replaces": "scripts/bench_pallas_v2.py:34",
         "launches": sum(bf16.values()), "launches_by_path": bf16,
         "launches_dx": res["train"]["launches"]["conv_v2_dx"]
+        + res["train_chained"]["launches"]["conv_v2_dx"]
         + tree["conv_v2_dx"] + tools["conv_v2_dx"],
         "max_abs_err": max([r["max_abs_err"] for r in v2_rows if "ms" in r]
                            + [r["fwd_max_abs_err"] for r in v2_train]
@@ -4076,6 +4269,7 @@ def phase_fast_conv_forms(torch, F, np, pkg):
 MESH_TRAIN_SEED = 7        # the dp_train noise generator, on every rank
 MESH_TRAIN_STEPS = 3       # dp_train: steps after which the ranks agree
 MESH_TIMED_STEPS = 1       # timed steps of the shardmap form
+MESH_CHAINED_K = 2         # dp_train_chained: steps of the NCCL rank's graph
 HALO_SIZE = 2048           # halo_eval's one image
 TILED_MESH = (1024, 4)     # tiled_mesh: image side, tiles
 # validated after the second epoch only (rank 0 validates while rank 1
@@ -4250,6 +4444,50 @@ def mesh_rank(mesh, outdir, phases):
         del model, opt, step, sm_step
         torch.cuda.empty_cache()
 
+    if "dp_train_chained" in phases:
+        # k shardmap steps as one graph (the all-reduces captured in it)
+        # against k shardmap steps one after another, from the same state
+        k = MESH_CHAINED_K
+        cfg = pkg.config.flagship_config(lambda_=2000.0,
+                                         learning_rate=TRAIN_LR,
+                                         steps_per_call=k)
+        chunk = u8_chunk(np, pkg, k, PARITY_B, PARITY_P, seed=3)
+        models = []
+        for _ in range(2):
+            model = load_model(cfg, pkg).to(mesh.device)
+            models.append((model, pkg.state.make_optimizer(
+                cfg, model, capturable=True)))
+            dp.shard_state_fn(mesh, model)()
+        chained = dp.make_chained_shardmap_train_step(cfg, *models[0], mesh)
+        seq, _ = dp.make_shardmap_train_step(cfg, *models[1], mesh)
+        gens = [dp.rank_generator(MESH_TRAIN_SEED, mesh) for _ in range(2)]
+        counts.reset()
+        t0 = time.perf_counter()
+        rows = chained(chunk, gens[0], TRAIN_LR, 1.0).cpu()
+        first_s = time.perf_counter() - t0
+        launches = counts.read()
+        want = torch.tensor([[float(v) for v in seq(
+            chunk_step_input(torch, np, chunk, i), gens[1], TRAIN_LR,
+            1.0)[0]] for i in range(k)])
+        torch.cuda.synchronize()
+        unequal = [n for (n, a), (_, b) in zip(
+            models[0][0].named_parameters(), models[1][0].named_parameters())
+            if not torch.equal(a, b)]
+        (_, cap), = chained.captured.items()
+        write("dp_train_chained", {
+            "form": chained.form, "k": k, "capture_s": cap["capture_s"],
+            "first_call_s": first_s,
+            "rows": rows.tolist(), "rows_sequential": want.tolist(),
+            "rows_max_rel_gap": float(((rows - want).abs()
+                                       / want.abs()).max()),
+            "params_unequal": unequal, "launches": launches,
+            "launches_per_replay": cap["launches"],
+            "reckoned": {key: v * (k + min(
+                pkg.state.GraphChain.WARMUP_STEPS, k)) for key, v in
+                reckon_step(cfg, train=True).items()}})
+        del models, chained, seq
+        torch.cuda.empty_cache()
+
     if "halo_eval" in phases:
         for name, cfg, model in halo_models(torch, pkg):
             step = pkg.tiling.make_halo_eval_step(cfg, model, mesh)
@@ -4315,7 +4553,7 @@ def phase_scale_out(torch, np, pkg, card):
             scale_out_refs(torch, np, pkg, outdir)
         refs_s = time.perf_counter() - t0
         runs = (("gloo", 2, ("dp_train", "halo_eval", "tiled_mesh")),
-                ("nccl", 1, ("dp_train",)))
+                ("nccl", 1, ("dp_train", "dp_train_chained")))
         seconds = {}
         dev_type = torch.device(DEV).type
         for backend, n, phases in runs:
@@ -4352,6 +4590,18 @@ def phase_scale_out(torch, np, pkg, card):
                 if r["launches"]["conv3x3_halo"] == 0 \
                         or r["launches"]["conv3x3_halo_dx"] == 0:
                     raise AssertionError(f"{name}: kernel 1 not launched")
+        ranks = read_ranks(outdir, "dp_train_chained", "nccl", 1)
+        res["dp_train_nccl_chained"] = {
+            "phase": "dp_train_nccl_chained", "ranks": 1, "backend": "nccl",
+            "card": card, "batch": [PARITY_B, 3, PARITY_P, PARITY_P],
+            "dtype": "float32", "per_rank": ranks}
+        emit(res["dp_train_nccl_chained"])
+        for r in ranks:
+            if r["form"] != "graph" or r["params_unequal"] \
+                    or not r["rows_max_rel_gap"] <= CHAINED_RTOL:
+                raise AssertionError(f"dp_train_nccl_chained: {r}")
+            expect_launches(r["launches"], r["reckoned"],
+                            "dp_train_nccl_chained's replay")
         for model in ("flagship", "cdf97"):
             ranks = read_ranks(outdir, f"halo_{model}", "gloo", 2)
             name = f"halo_eval_{model}"
@@ -4495,7 +4745,8 @@ def new_phases(torch, F, np, pkg, counts, conv):
 
 SWEEP_LAMBDAS = (2000.0, 6000.0)   # rd_sweep_retest: the committed snapshots
 SWEEP_RETEST_IMAGES = 4            # the first dead-leaves images of the 24
-SWEEP_TRAIN_STEPS = 10             # rd_sweep_train: bf16 steps, B=8 x 64^2
+SWEEP_TRAIN_STEPS = 20             # rd_sweep_train: bf16 steps, B=8 x 64^2,
+                                   # two chunks of the preset's 10
 SWEEP_CORPUS = 16                  # the corpus's first images (depth cut)
 SWEEP_TEST_IMAGES = 2
 IMSHOW_TOL = 1e-4                  # fp32 montage: max |card - CPU| / max
@@ -4596,41 +4847,52 @@ def phase_rd_sweep_retest(torch, pkg, counts):
 def phase_rd_sweep_train(torch, np, pkg, counts):
     """The sweep's training path on the card: the flagship preset at full
     width, lambda=2000, fresh init, ``SWEEP_TRAIN_STEPS`` bf16 steps of
-    B=8 x 64^2 through the agent, the corpus in memory; the checkpoint and
-    the snapshot written, the snapshot reloaded into a fresh model equal to
-    the bit (f16 of the trained parameters); then the agent's ``test`` on
-    two held-out images."""
+    B=8 x 64^2 through the agent in chunks of the preset's
+    ``steps_per_call`` (one CUDA graph replay a chunk), the corpus in
+    memory; the checkpoint and the snapshot written, the snapshot reloaded
+    into a fresh model equal to the bit (f16 of the trained parameters);
+    then the agent's ``test`` on two held-out images."""
     n = SWEEP_TRAIN_STEPS
     with tempfile.TemporaryDirectory() as root:
         cfg = sweep_config(pkg, 2000.0, root)
+        k = cfg.steps_per_call
         corpus = pkg.data.synthetic_natural_images(
             SWEEP_CORPUS, *pkg.rd_sweep.CORPUS[1:])
         images = sweep_images(pkg, SWEEP_TEST_IMAGES)
         t0 = time.perf_counter()
         agent = pkg.rd_sweep.sweep_agent(cfg, corpus, images, DEV)
         init_s = time.perf_counter() - t0
-        step, times = agent.train_step, []
+        chained, times = agent.chained_step, []
+        if chained is None or chained.form != "graph":
+            raise AssertionError("rd_sweep_train: the agent built no "
+                                 "graph-chained step")
 
-        def timed_step(*args):
+        def timed_chunk(*args):
             t = time.perf_counter()
-            out = step(*args)
+            out = chained(*args)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t)
             return out
 
-        agent.train_step = timed_step
+        agent.chained_step = timed_chunk
         counts.reset()
         t0 = time.perf_counter()
         agent.run()
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
         launches = counts.read()
-        reckoned = {k: v * n for k, v in reckon_step(
+        # the counters count the graph's launches once a replay, and the
+        # capture's eager warm-up steps
+        warmup = min(pkg.state.GraphChain.WARMUP_STEPS, k)
+        reckoned = {key: v * (n + warmup) for key, v in reckon_step(
             cfg, train=True, size=(cfg.patch_size, cfg.patch_size)).items()}
         expect_launches(launches, reckoned, f"rd_sweep_train's {n} steps")
-        if agent.current_iteration != n:
+        if agent.current_iteration != n or chained.replays != n // k \
+                or agent.timers.counts["step"] != n // k:
             raise AssertionError(f"rd_sweep_train: {agent.current_iteration} "
-                                 f"steps, expected {n}")
+                                 f"steps in {chained.replays} replays, "
+                                 f"expected {n} in {n // k}")
+        (_, captured), = chained.captured.items()
         t0 = time.perf_counter()
         agent.save_checkpoint(is_best=True)
         path = pkg.rd_sweep.save_params_snapshot("flagship", 2000.0, agent,
@@ -4656,12 +4918,18 @@ def phase_rd_sweep_train(torch, np, pkg, counts):
     res = {"phase": "rd_sweep_train", "config": "flagship preset, fresh init",
            "dtype": cfg.dtype, "lambda": cfg.lambda_,
            "batch": [cfg.batch_size, 3, cfg.patch_size, cfg.patch_size],
-           "steps": n, "corpus_images": SWEEP_CORPUS,
+           "steps": n, "steps_per_call": k, "corpus_images": SWEEP_CORPUS,
            "params": sum(p.numel() for p in agent.model.parameters()),
            "agent_init_s": init_s, "run_s": run_s,
-           "first_step_ms": ms[0],
-           "ms_per_step": sum(ms[1:]) / len(ms[1:]),
-           "ms_per_step_min": min(ms[1:]), "ms_per_step_all": ms,
+           "capture_s": captured["capture_s"],
+           "capture_warmup_s": captured["warmup_s"],
+           "capture_record_s": captured["record_s"],
+           "first_chunk_ms": ms[0],
+           "ms_per_chunk": sum(ms[1:]) / len(ms[1:]),
+           "ms_per_step": sum(ms[1:]) / len(ms[1:]) / k,
+           "ms_per_chunk_all": ms, "replays": chained.replays,
+           "launches_per_replay": captured["launches"],
+           "warmup_steps": warmup,
            "launches": launches, "reckoned": reckoned,
            "save_s": save_s, "snapshot_keys": n_keys, "snapshot_mb": snap_mb,
            "reloaded_iteration": it, "unequal_after_reload": unequal,
@@ -4941,6 +5209,13 @@ def main() -> int:
     phase_profile(torch, train_step, train_res["ms_per_step"],
                   "train_profile")
     del train_step
+    torch.cuda.empty_cache()
+    with tf32_off(torch, deterministic=True):
+        res["train_chained_parity"] = phase_train_chained_parity(
+            torch, numpy, pkg, counts)
+    torch.cuda.empty_cache()
+    res["train_chained"] = phase_train_chained(torch, numpy, pkg, counts,
+                                               train_res)
     torch.cuda.empty_cache()
     with tf32_off(torch):
         res["agent"], res["agent_test"] = phase_agent(

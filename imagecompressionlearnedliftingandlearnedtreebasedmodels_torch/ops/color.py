@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -28,9 +30,17 @@ def ycbcr_to_rgb(x: torch.Tensor) -> torch.Tensor:
 YCBCR_SHIFT = (0.5, 0.0, 0.0)
 
 
+@functools.lru_cache(maxsize=16)
+def _shift_constant(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    return torch.tensor(YCBCR_SHIFT, dtype=dtype, device=device).view(
+        1, 3, 1, 1)
+
+
 def _shift(like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(YCBCR_SHIFT, dtype=like.dtype,
-                        device=like.device).view(1, 3, 1, 1)
+    """The shift as a (1, 3, 1, 1) constant on ``like``'s device, made once
+    per dtype and device: a step captured in a CUDA graph may copy nothing
+    from the host."""
+    return _shift_constant(like.dtype, like.device)
 
 
 def shift_ycbcr(y: torch.Tensor) -> torch.Tensor:

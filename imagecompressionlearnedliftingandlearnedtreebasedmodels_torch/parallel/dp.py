@@ -15,13 +15,15 @@ every rank reports the global batch's values.
 - :func:`make_shardmap_train_step` (the agent's path): each rank draws its
   slice's noise from its own generator, seeded from (seed, rank) by
   :func:`rank_generator`: the counterpart of ``fold_in(rng, axis_index)``.
+- :func:`make_chained_shardmap_train_step` (the agent's path with
+  ``steps_per_call`` > 1): k shardmap steps in one call, the gradients
+  averaged at every step. On NCCL ranks one CUDA graph holds the k steps
+  with their all-reduces; gloo's collectives cannot be captured, so gloo
+  ranks (the CPU, or ranks sharing a card) take the plain k-step form.
 - :func:`make_dp_eval_step`: the batch sharded where it divides the mesh,
   replicated otherwise.
 - :func:`dryrun_multichip`: one step of each train form on ``n`` new
   ranks, the counterpart of ``__graft_entry__.dryrun_multichip``.
-
-``make_chained_shardmap_train_step`` is not ported: it hides a TPU's
-dispatch latency, and every step here is dispatched on its own.
 """
 
 from __future__ import annotations
@@ -35,7 +37,8 @@ from torch import nn
 
 from ..config import Config, full_fp32
 from ..train.loss import RDLossOutput, rd_loss3
-from ..train.state import apply_color_forward
+from ..train.state import (PlainChain, apply_color_forward, chain_steps,
+                           chains_in_graph, set_lr)
 from . import mesh as mesh_lib
 from .mesh import Mesh
 
@@ -93,24 +96,19 @@ def mean_over_ranks(mesh: Mesh, values) -> torch.Tensor:
     return t / mesh.size
 
 
-def _make_step(cfg: Config, model: nn.Module,
-               optimizer: torch.optim.Optimizer, mesh: Mesh,
-               noise: Callable) -> Callable:
+def _dp_body(cfg: Config, model: nn.Module,
+             optimizer: torch.optim.Optimizer, mesh: Mesh,
+             noise: Callable) -> Callable:
+    """``body(local, generator, rate_weight, lam) -> (RDLossOutput, aux)``:
+    one step on this rank's device slice ``local``, the gradients averaged
+    over the ranks, the terms too."""
     full_fp32()
     model.to(mesh.device)
     params = list(model.parameters())
     loss_scale = 1.0 / max(cfg.grad_acc_iters, 1)
 
-    def step(batch: torch.Tensor, generator, lr: float, rate_weight: float,
-             lam: Optional[float] = None
-             ) -> Tuple[RDLossOutput, torch.Tensor]:
-        if lam is None:
-            lam = cfg.lambda_
+    def body(local, generator, rate_weight, lam):
         model.train()
-        for group in optimizer.param_groups:
-            group["lr"] = float(lr)
-        local = mesh_lib.shard_batch(mesh, batch).to(mesh.device,
-                                                     torch.float32)
         optimizer.zero_grad(set_to_none=True)
         xs, xhat, info_xe, info_xo, aux = apply_color_forward(
             cfg, model, local, True, noise(generator))
@@ -120,6 +118,24 @@ def _make_step(cfg: Config, model: nn.Module,
         optimizer.step()
         m = mean_over_ranks(mesh, (*out, aux))
         return RDLossOutput(*m[:4]), m[4]
+
+    return body
+
+
+def _make_step(cfg: Config, model: nn.Module,
+               optimizer: torch.optim.Optimizer, mesh: Mesh,
+               noise: Callable) -> Callable:
+    body = _dp_body(cfg, model, optimizer, mesh, noise)
+
+    def step(batch: torch.Tensor, generator, lr: float, rate_weight: float,
+             lam: Optional[float] = None
+             ) -> Tuple[RDLossOutput, torch.Tensor]:
+        if lam is None:
+            lam = cfg.lambda_
+        set_lr(optimizer, lr)
+        local = mesh_lib.shard_batch(mesh, batch).to(mesh.device,
+                                                     torch.float32)
+        return body(local, generator, rate_weight, lam)
 
     return step
 
@@ -153,6 +169,35 @@ def make_shardmap_train_step(cfg: Config, model: nn.Module,
     folds the axis index into its key."""
     step = _make_step(cfg, model, optimizer, mesh, lambda g: g)
     return step, shard_state_fn(mesh, model)
+
+
+def make_chained_shardmap_train_step(cfg: Config, model: nn.Module,
+                                     optimizer: torch.optim.Optimizer,
+                                     mesh: Mesh) -> PlainChain:
+    """``k = cfg.steps_per_call`` shardmap steps in one call on the mesh:
+    ``chained_step(batches_u8, generator, lr, rate_weight, lam=None) ->
+    Tensor (k, 4)``, the rows averaged over the ranks. ``batches_u8`` is the
+    global chunk ``(k, B, P, P, 3)``; each rank takes its slice of every
+    batch, draws its noise from its own ``generator``
+    (:func:`rank_generator`) and averages the gradients at every step, so
+    the result is step for step what k :func:`make_shardmap_train_step`
+    calls give. The form follows ``mesh.backend``, chosen before anything
+    runs: NCCL ranks one CUDA graph of the k steps with their all-reduces
+    (``optimizer`` from ``make_optimizer(..., capturable=True)``; the
+    warm-up's eager all-reduces make the communicator before the capture),
+    gloo ranks the plain k-step form."""
+    body = _dp_body(cfg, model, optimizer, mesh, lambda g: g)
+
+    def take(x: torch.Tensor) -> torch.Tensor:
+        b = x.shape[1]
+        if b % mesh.size:
+            raise ValueError(f"batch {b} does not divide over {mesh.size} "
+                             f"ranks")
+        n = b // mesh.size
+        return x[:, mesh.rank * n:(mesh.rank + 1) * n]
+
+    return chain_steps(cfg, body, optimizer, model, mesh.device, take,
+                       chains_in_graph(mesh.device, mesh.backend))
 
 
 def make_dp_eval_step(cfg: Config, model: nn.Module, mesh: Mesh):

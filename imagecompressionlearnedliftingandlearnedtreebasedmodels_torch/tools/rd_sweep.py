@@ -165,7 +165,8 @@ def make_cfg(preset: str, lam: float, steps: int, train_dir: str,
              eval_dir: str, root: str) -> config_mod.Config:
     """The preset's config at ``lam`` (the JAX package's sweep's, but for
     the experiment directory, ``experiments/rd_sweep/port_<preset>/``).
-    ``steps_per_call`` is accepted and ignored by the port's agent."""
+    Its ``steps_per_call`` of 10 trains in chunks of 10 steps: one CUDA
+    graph replay a chunk on a card (``train/state.py::GraphChain``)."""
     exp = os.path.join(root, "experiments", "rd_sweep", f"port_{preset}",
                        f"lam_{lam:g}")
     common = dict(

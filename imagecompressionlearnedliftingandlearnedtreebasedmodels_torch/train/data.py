@@ -171,20 +171,32 @@ class ImageDataLoader:
                 32, max(cfg.patch_size, 64), seed=cfg.seed)
 
     # --- train ----------------------------------------------------------
-    def train_batches(self, steps: int, seed: int = 0) -> Iterator[np.ndarray]:
+    def train_batches(self, steps: int, seed: int = 0, chunk: int = 1
+                      ) -> Iterator[np.ndarray]:
         """``steps`` random-patch batches ``(B, P, P, 3)`` float32 in [0, 1],
-        prefetched on a worker thread."""
+        prefetched on a worker thread.
+
+        ``chunk > 1`` yields ``steps / chunk`` stacked uint8 arrays
+        ``(chunk, B, P, P, 3)`` for the ``steps_per_call`` chained train step
+        (``train/state.py::make_chained_train_step``, which turns them into
+        floats on the device, bit for bit as here). The patches are drawn in
+        the same order either way, so the per-step batches are the same."""
         cfg = self.cfg
+        if chunk > 1 and steps % chunk:
+            raise ValueError(f"steps ({steps}) not divisible by chunk "
+                             f"({chunk})")
 
         def produce(q: "queue.Queue"):
             rng = np.random.RandomState(cfg.seed + seed)
-            for _ in range(steps):
-                arr = np.empty((cfg.batch_size, cfg.patch_size,
+            for _ in range(steps // chunk):
+                arr = np.empty((chunk, cfg.batch_size, cfg.patch_size,
                                 cfg.patch_size, 3), np.uint8)
-                for b in range(cfg.batch_size):
-                    img = self._draw_train_image(rng)
-                    arr[b] = _random_patch(img, cfg.patch_size, rng)
-                q.put(arr.astype(np.float32) / 255.0)
+                for c in range(chunk):
+                    for b in range(cfg.batch_size):
+                        img = self._draw_train_image(rng)
+                        arr[c, b] = _random_patch(img, cfg.patch_size, rng)
+                q.put(arr if chunk > 1
+                      else arr[0].astype(np.float32) / 255.0)
             q.put(None)
 
         q: "queue.Queue" = queue.Queue(maxsize=4)

@@ -21,8 +21,13 @@ checkpoints (plain state dicts, so a mesh run and a single-device run
 resume from each other) and runs ``test``.
 ``imshow_validation`` saves the wavelet-pyramid montage of the first
 validation image at each validation (``utils/image_plots.py``).
-``steps_per_call`` is accepted and ignored: it chains steps to hide a
-TPU's dispatch latency, and every step here is dispatched on its own.
+``steps_per_call`` = k > 1 trains in chunks of k steps, one call of the
+chained step a chunk (``train/state.py::make_chained_train_step``, on a
+mesh ``parallel/dp.py::make_chained_shardmap_train_step``): one CUDA graph
+of the k steps on a card (alone or on NCCL ranks), the plain k-step form on
+the CPU and on gloo ranks; one readback of the (k, 4) rows a chunk. Where
+k does not divide both the epoch and ``loss_prnt_iters`` the epoch runs
+step by step, as in the JAX package.
 fp32 runs at full fp32 precision (``config.full_fp32``: TF32 off).
 """
 
@@ -41,8 +46,9 @@ from ..utils.profiling import DeviceTrace, PhaseTimers
 from . import checkpoint as ckpt
 from .data import ImageDataLoader
 from .loggers import RDLogger, setup_logging
-from .state import (LossSwitchController, PlateauScheduler, make_eval_step,
-                    make_optimizer, make_train_step)
+from .state import (LossSwitchController, PlateauScheduler, chains_in_graph,
+                    load_optimizer_state, make_chained_train_step,
+                    make_eval_step, make_optimizer, make_train_step)
 
 
 def _to_nchw(batch: np.ndarray) -> torch.Tensor:
@@ -70,19 +76,22 @@ class LiftingDWTAgent:
                 f"data-parallel mesh: {self.mesh.size} ranks "
                 f"({cfg.batch_size // self.mesh.size} examples/rank, "
                 f"{self.mesh.backend} on {self.mesh.device})")
-        if cfg.steps_per_call > 1:
-            self.logger.info(
-                f"steps_per_call={cfg.steps_per_call} is ignored: every step "
-                "is dispatched on its own")
         # liveness beacon (a no-op unless LIFTING_HEARTBEAT is set)
         self.heartbeat = Heartbeat()
         init_gen = torch.Generator().manual_seed(cfg.seed)
         self.model = CodecWrapper(cfg, generator=init_gen).to(self.device)
         self.data = ImageDataLoader(cfg)
-        self.optimizer = make_optimizer(cfg, self.model)
+        chained = cfg.steps_per_call > 1
+        graph = chained and chains_in_graph(
+            self.device, None if self.mesh is None else self.mesh.backend)
+        self.optimizer = make_optimizer(cfg, self.model, capturable=graph)
+        self.chained_step = None
         if self.mesh is None:
             self.train_step = make_train_step(cfg, self.model, self.optimizer,
                                               self.device)
+            if chained:
+                self.chained_step = make_chained_train_step(
+                    cfg, self.model, self.optimizer, self.device)
             self.eval_step = make_eval_step(cfg, self.model, self.device)
             # quantization noise, drawn on the device the model runs on
             self.generator = torch.Generator(device=self.device)
@@ -91,6 +100,9 @@ class LiftingDWTAgent:
             from ..parallel import dp
             self.train_step, shard_state = dp.make_shardmap_train_step(
                 cfg, self.model, self.optimizer, self.mesh)
+            if chained:
+                self.chained_step = dp.make_chained_shardmap_train_step(
+                    cfg, self.model, self.optimizer, self.mesh)
             shard_state()
             if cfg.halo_eval:
                 from ..parallel.tiling import make_halo_eval_step
@@ -101,6 +113,11 @@ class LiftingDWTAgent:
                                                       self.mesh)
             # each rank's own noise, seeded from (seed, rank)
             self.generator = dp.rank_generator(cfg.seed + 7, self.mesh)
+        if chained:
+            self.logger.info(
+                f"steps_per_call={cfg.steps_per_call}: "
+                + ("one CUDA graph of the steps a chunk" if graph else
+                   "the plain form, the steps one after another a chunk"))
 
         self.scheduler = PlateauScheduler(lr=cfg.learning_rate)
         self.loss_switch = LossSwitchController(
@@ -111,6 +128,7 @@ class LiftingDWTAgent:
         self.best_valid_loss = float("inf")
         self.timers = PhaseTimers()
         self._trace = None
+        self._trace_from = None   # the iteration the trace opened at
 
         jsonl = (f"{cfg.summary_dir}/metrics.jsonl"
                  if cfg.summary_dir and self.is_main else None)
@@ -183,19 +201,25 @@ class LiftingDWTAgent:
                 # crash insurance between (or instead of) validations
                 self.save_checkpoint()
 
-    def _profile_tick(self):
+    def _profile_tick(self, k: int = 1):
         """Device-trace window: steps [1, 1+profile_steps) of the run (step
-        0 pays the kernel build and cuDNN's planning); rank 0's alone."""
+        0 pays the kernel build and cuDNN's planning); rank 0's alone. In
+        chunks of k steps it opens after the first chunk (which pays the
+        graph's capture too) and closes at the first chunk boundary past
+        the window."""
         cfg = self.cfg
         if cfg.profile_steps <= 0 or not self.is_main:
             return
-        if self._trace is None and self.current_iteration == 1:
+        if self._trace is None and self._trace_from is None \
+                and 1 <= self.current_iteration < 1 + k:
             self._trace = DeviceTrace(
                 os.path.join(cfg.log_dir or ".", "trace"), self.device)
             self._trace.start()
+            self._trace_from = self.current_iteration
             self.logger.info("profiler trace started")
         elif self._trace is not None and (self.current_iteration
-                                          >= 1 + cfg.profile_steps):
+                                          >= self._trace_from
+                                          + cfg.profile_steps):
             self._stop_trace()
 
     def _stop_trace(self):
@@ -203,36 +227,65 @@ class LiftingDWTAgent:
         self._trace = None
         self.logger.info(f"profiler trace stopped -> {path}")
 
+    def _chunk_size(self, steps: int) -> int:
+        """The effective ``steps_per_call``: chunks must align with the
+        ``loss_prnt_iters`` window (the loss switch may flip the rate weight
+        only at a chunk boundary: it is constant inside a chunk) and with
+        the epoch. A config where k does not divide both runs step by step,
+        as the JAX package's agent does, rather than change what it
+        computes."""
+        k = self.cfg.steps_per_call
+        if k <= 1:
+            return 1
+        if steps % k or self.cfg.loss_prnt_iters % k:
+            self.logger.warning(
+                f"steps_per_call={k} does not divide steps_per_epoch="
+                f"{steps} and loss_prnt_iters={self.cfg.loss_prnt_iters}; "
+                f"using per-step dispatch")
+            return 1
+        return k
+
     def train_one_epoch(self, epoch: int):
         cfg = self.cfg
         steps = self.data.steps_per_epoch()
-        batches = iter(self.data.train_batches(steps, seed=epoch))
+        k = self._chunk_size(steps)
+        batches = iter(self.data.train_batches(steps, seed=epoch, chunk=k))
         while True:
             with self.timers.phase("data"):
                 batch = next(batches, None)
             if batch is None:
                 break
-            self._profile_tick()
+            self._profile_tick(k)
+            rate_w = self.loss_switch.rate_weight()
             with self.timers.phase("step"):
-                out, _ = self.train_step(
-                    _to_nchw(batch), self.generator, self.scheduler.lr,
-                    self.loss_switch.rate_weight())
                 # the readback is the device sync point: the step's time
                 # holds the device work, not only the enqueue
-                vals = tuple(float(v) for v in out)
+                if k > 1:
+                    # one (k, 4) readback a chunk
+                    rows = self.chained_step(batch, self.generator,
+                                             self.scheduler.lr,
+                                             rate_w).tolist()
+                else:
+                    out, _ = self.train_step(_to_nchw(batch), self.generator,
+                                             self.scheduler.lr, rate_w)
+                    rows = [[float(v) for v in out]]
             self.heartbeat.beat()
-            self.current_iteration += 1
-            self.train_logger(*vals)
-            self.trnit_logger(*vals)
-            if self.current_iteration % cfg.loss_prnt_iters == 0:
-                _, it_mse, _, _ = self.trnit_logger.display(
-                    lr=self.scheduler.lr, typ="it",
-                    step=self.current_iteration)
-                was_off = not self.loss_switch.rate_on
-                self.loss_switch.observe_window_mse(it_mse)
-                if was_off and self.loss_switch.rate_on:
-                    self.logger.info(
-                        "loss switch: D-only -> Rate + lambda*Distortion")
+            for vals in rows:
+                self.current_iteration += 1
+                self.train_logger(*vals)
+                self.trnit_logger(*vals)
+                # at multiples of loss_prnt_iters, which are chunk
+                # boundaries: the rate weight flips before the next chunk,
+                # as it would before the next step
+                if self.current_iteration % cfg.loss_prnt_iters == 0:
+                    _, it_mse, _, _ = self.trnit_logger.display(
+                        lr=self.scheduler.lr, typ="it",
+                        step=self.current_iteration)
+                    was_off = not self.loss_switch.rate_on
+                    self.loss_switch.observe_window_mse(it_mse)
+                    if was_off and self.loss_switch.rate_on:
+                        self.logger.info(
+                            "loss switch: D-only -> Rate + lambda*Distortion")
         rd, _, _, _ = self.train_logger.display(
             lr=self.scheduler.lr, typ="tr", step=self.current_iteration)
         self.scheduler.step(rd)
@@ -382,7 +435,7 @@ class LiftingDWTAgent:
         self.current_iteration = int(payload["iteration"])
         self.best_valid_loss = float(payload["best_valid_loss"])
         self.model.load_state_dict(payload["model"])
-        self.optimizer.load_state_dict(payload["optimizer"])
+        load_optimizer_state(self.optimizer, payload["optimizer"])
         self.scheduler.load_state_dict(payload["scheduler"])
         self.loss_switch.load_state_dict(payload["loss_switch"])
         self.train_logger.load_state_dict(payload["train_logger"])

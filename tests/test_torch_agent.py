@@ -427,10 +427,11 @@ def test_unported_options_raise(tmp_path):
     with pytest.raises(KeyError):
         pregistry.get_agent("NoSuchAgent")
     assert pregistry.get_agent("CompressionAgent") is ploop.LiftingDWTAgent
-    # steps_per_call is accepted (and ignored)
+    # steps_per_call builds the chained step (its plain form on the CPU)
     agent = ploop.LiftingDWTAgent(
         tiny_cfg(tmp_path, steps_per_call=4, mode="validate_recu_reco"),
         device="cpu")
+    assert agent.chained_step.form == "plain"
     agent.run()
 
 

@@ -8,8 +8,9 @@ multi-level transform and its backward); the tree-based entropy models
 the kernels' launches counted per model and dtype, and their coding path's
 parameter passes on the card; the quincunx lifting nets of the lambda=400
 snapshot on kernel 1 (the same bits twice, card against CPU, a stream
-decoded twice to the same bits) and the other transforms on the card. Imports no JAX, so it runs where only
-PyTorch is installed:
+decoded twice to the same bits) and the other transforms on the card; the
+CUDA graph of ``steps_per_call`` train steps against eager steps. Imports
+no JAX, so it runs where only PyTorch is installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -636,3 +637,55 @@ def test_entry_points_run_fp32_in_full_precision(card):
     for k in ("loss", "mse", "rate1", "rate2"):
         assert abs(float(getattr(got, k)) - float(getattr(want, k))) \
             <= 1e-4 * abs(float(getattr(want, k))), k
+
+
+@pytest.mark.cuda
+def test_graph_chained_step_matches_eager_steps(card):
+    """``steps_per_call``: two replays of the CUDA graph of k=3 flagship
+    train steps (2 levels, 32x32, fp32, seeded weights) against 6 eager
+    steps of the same model from the same state, both with the capturable
+    Adam, cuDNN deterministic. The same kernels run on the same inputs in
+    the same order, so rows and parameters agree within 1e-6 (relative; of
+    each tensor's max |p|). The noise advances a replay: the second replay's
+    rows differ from the first's on the same batches, and the generator
+    ends where the eager steps leave theirs."""
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        cfg = config.Config(
+            netType="LiftingBasedNeuralWaveletv4",
+            entropy_layer="conditioned2ZTsepSubbands",
+            autoencoder="SubbandAutoEncoderBerk", clrch=1, dwtlevels=2,
+            batch_size=2, patch_size=32, lambda_=100.0, learning_rate=1e-4,
+            steps_per_call=3).validate()
+        k = cfg.steps_per_call
+        chunk = np.stack([np.stack(data.synthetic_images(2, 32, seed=i))
+                          for i in range(k)])
+        models = []
+        for _ in range(2):
+            model = codec.CodecWrapper(
+                cfg, generator=torch.Generator().manual_seed(0)).to(card)
+            models.append((model, state.make_optimizer(cfg, model,
+                                                       capturable=True)))
+        chained = state.make_chained_train_step(cfg, *models[0], card)
+        assert chained.form == "graph"
+        step = state.make_train_step(cfg, *models[1], card)
+        gens = [torch.Generator(device=card).manual_seed(3)
+                for _ in range(2)]
+        got = [chained(chunk, gens[0], 1e-4, 1.0).cpu() for _ in range(2)]
+        want = torch.tensor([[float(v) for v in step(
+            torch.from_numpy(chunk[i].astype(np.float32) / 255.0).permute(
+                0, 3, 1, 2), gens[1], 1e-4, 1.0)[0]]
+            for _ in range(2) for i in range(k)])
+        rows = torch.cat(got)
+        assert float(((rows - want).abs() / want.abs()).max()) <= 1e-6
+        for (name, p), q in zip(models[0][0].named_parameters(),
+                                models[1][0].parameters()):
+            d, q = (p - q).detach(), q.detach()
+            gap = float(d.abs().max() / q.abs().max().clamp_min(1e-30))
+            assert gap <= 1e-6, name
+        assert not torch.equal(got[0], got[1])
+        assert torch.equal(gens[0].get_state(), gens[1].get_state())
+        assert chained.replays == 2
+    finally:
+        torch.backends.cudnn.deterministic = old

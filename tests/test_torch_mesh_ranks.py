@@ -137,6 +137,27 @@ def parallel_ranks(mesh, outdir, cases):
     outs += [tuple(step(batch, gen, 1e-3, 1.0)[0]) for _ in range(2)]
     save(outdir, "dp_train", mesh, (outs, grads, model.state_dict()))
 
+    # make_chained_shardmap_train_step (gloo: the plain k-step form) and as
+    # many make_shardmap_train_step calls one after another, each from the
+    # same seeded state, with each rank's own noise
+    cfg = pconfig.Config(**dict(cases["dp_cfg"], steps_per_call=2)).validate()
+    chunk = cases["chained_chunk"]
+    runs = []
+    for chained in (True, False):
+        model = seeded_codec(cfg, 0)
+        opt = pstate.make_optimizer(cfg, model)
+        gen = dp.rank_generator(9, mesh)
+        if chained:
+            step = dp.make_chained_shardmap_train_step(cfg, model, opt, mesh)
+            form, rows = step.form, step(chunk, gen, 1e-3, 1.0).tolist()
+        else:
+            step, _ = dp.make_shardmap_train_step(cfg, model, opt, mesh)
+            rows = [[float(v) for v in step(torch.from_numpy(
+                chunk[i].astype(np.float32) / 255.0).permute(0, 3, 1, 2),
+                gen, 1e-3, 1.0)[0]] for i in range(len(chunk))]
+        runs.append((rows, model.state_dict()))
+    save(outdir, "chained", mesh, (form, runs))
+
     # make_shardmap_train_step with the noise pinned: one step from the
     # JAX package's weights
     pin_noise()

@@ -14,6 +14,9 @@ port):
   factorized, as ``tests/test_parallel.py``), from the same weights;
 - ``make_dp_eval_step`` on a batch that divides the mesh and one that does
   not;
+- ``make_chained_shardmap_train_step`` (k=2; gloo ranks take its plain
+  form) against two shardmap steps one after another: rows and parameters
+  equal to the bit;
 - the CLI with ``mesh_shape: [2]`` (2 ranks, 2 epochs), resumed as a
   single-device run, then ``mode: test``; ``dryrun_multichip(2)``.
 
@@ -84,6 +87,8 @@ def got(tmp_path_factory):
              "sm_cfg": SM_CFG, "sm_params": sm_params, "sm_batch": sm_batch,
              "eval_batches": [rng.rand(b, 3, 32, 32).astype(np.float32)
                               for b in (2, 1)]}
+    cases["chained_chunk"] = (rng.rand(2, 2, 32, 32, 3) * 255).astype(
+        np.uint8)
     out = tmp_path_factory.mktemp("parallel")
     pmesh.spawn(ranks.parallel_ranks, 2, "cpu", (str(out), cases),
                 rendezvous_dir=str(out))
@@ -147,6 +152,19 @@ def test_dp_train_step_gradients_equal_the_averaged_slices(got):
         want = g / 2
         gap = float((grads0[k] - want).abs().max())
         assert gap <= 1e-6 * max(float(want.abs().max()), 1e-12), k
+
+
+def test_chained_shardmap_step_equals_sequential_steps(got):
+    """Two gloo ranks take the plain k-step form; its rows (averaged over
+    the ranks) and parameters equal k shardmap steps' to the bit, on every
+    rank."""
+    for form, ((rows, sd), (want_rows, want_sd)) in got["chained"]:
+        assert form == "plain"
+        assert len(rows) == 2 and rows == want_rows
+        for k, v in want_sd.items():
+            assert torch.equal(sd[k], v), k
+    (_, ((rows0, _), _)), (_, ((rows1, _), _)) = got["chained"]
+    assert rows0 == rows1
 
 
 def test_shardmap_train_step_matches_jax(got, monkeypatch):
