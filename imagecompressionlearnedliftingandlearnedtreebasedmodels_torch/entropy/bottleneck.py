@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.math_utils import lower_bound, quantize_dequantize, quantize_noise
+from ..utils.profiling import spanned
 
 LIKELIHOOD_BOUND = 1e-9
 
@@ -95,11 +96,12 @@ class EntropyBottleneck(nn.Module):
         target = logits.new_tensor([-t, 0.0, t])
         return (logits - target).abs().sum()
 
+    @spanned("entropy.likelihood")
     def forward(self, x: torch.Tensor, training: bool = False,
                 generator: Optional[torch.Generator] = None):
         """x (B, C, H, W) -> (x_qnt, likelihood), both x's shape. Training
         adds U(-0.5, 0.5) noise from ``generator``; eval rounds around the
-        median."""
+        median. The span ``entropy.likelihood``."""
         if training:
             x_qnt = quantize_noise(x, generator)
         else:

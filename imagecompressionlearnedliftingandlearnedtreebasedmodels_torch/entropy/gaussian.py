@@ -16,6 +16,7 @@ import torch
 
 from ..ops.math_utils import (lower_bound, quantize_dequantize,
                               quantize_noise)
+from ..utils.profiling import spanned
 
 SCALES_MIN = 0.11
 SCALES_MAX = 256.0
@@ -88,8 +89,9 @@ def likelihood(x: torch.Tensor, scales: torch.Tensor, means=None,
     return x_qnt, lower_bound(upper - lower, LIKELIHOOD_BOUND)
 
 
+@spanned("entropy.likelihood")
 def self_information_bits(x: torch.Tensor, scales: torch.Tensor, means=None,
                           training: bool = False, generator=None):
-    """``(x_qnt, -log2 likelihood)``."""
+    """``(x_qnt, -log2 likelihood)``; the span ``entropy.likelihood``."""
     x_qnt, lik = likelihood(x, scales, means, training, generator)
     return x_qnt, -torch.log2(lik)

@@ -22,6 +22,10 @@ transform (hard-rounded in eval; with additive uniform noise drawn from
   cosets are coded in turn, each conditioned on the parent channel and the
   cosets before it through its own small ``_DepNet`` pair (sigma, mu), so
   a level decodes in four passes.
+
+ZTsep's context networks (the methods that give (sigma, mu)) are the span
+``entropy.context``, the likelihoods (``gaussian.self_information_bits``,
+the bottlenecks' forward) ``entropy.likelihood`` (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from ..ops.fast_conv import Conv2d, FastConv3x3, FastGroupedConv1x1
 from ..ops.masked_conv import MaskedConv2d
 from ..ops.math_utils import quantize_dequantize, quantize_noise
 from ..ops.upscaling import ZeroTreePreviousLayer
+from ..utils.profiling import spanned
 from . import gaussian
 from .bottleneck import EntropyBottleneck
 
@@ -245,6 +250,7 @@ class ZTSepSubbands(nn.Module):
         s = csc_params.reshape(b, so, 81, h, w)
         return torch.cat([p, s], dim=2).reshape(b, so * 162, h, w)
 
+    @spanned("entropy.context")
     def level_params(self, i: int, xo_qnt_i: torch.Tensor, con: torch.Tensor):
         """(sigma, mu) for finer level i from its quantized details and the
         upsampled parent context."""
@@ -252,9 +258,11 @@ class ZTSepSubbands(nn.Module):
         plc_params = self.plc[i](con)
         return _split_sigma_mu(self.cgp[i](self._fuse(plc_params, csc_params)))
 
+    @spanned("entropy.context")
     def coarsest_params(self, xo_qnt: torch.Tensor):
         return _split_sigma_mu(self.pixelcnn_xo(xo_qnt))
 
+    @spanned("entropy.context")
     def xe_params(self, xe_qnt: torch.Tensor):
         return _split_sigma_mu(self.pixelcnn_xe(xe_qnt))
 

@@ -22,11 +22,14 @@ from ..ops.fast_conv import (Conv2d, ConvTranspose2d, FastConv3x3,
                              StridedConv2d)
 from ..ops.masked_conv import ChannelIncrementalConv2d
 from ..ops.upscaling import ConvTranspose2x2
+from ..utils.profiling import span
 from .transforms import QuincunxLiftingTransform, make_transform
 
 
 class LiftingDWTCodec(nn.Module):
-    """Single color-group codec: transform + entropy + inverse transform."""
+    """Single color-group codec: transform + entropy + inverse transform;
+    the call of the entropy model is the span ``codec.entropy``, of its
+    aux loss ``entropy.aux_loss`` (``utils/profiling.py``)."""
 
     def __init__(self, cfg: Config):
         super().__init__()
@@ -39,13 +42,15 @@ class LiftingDWTCodec(nn.Module):
         lifting = isinstance(self.transform, QuincunxLiftingTransform)
         kw = dict(training=training, generator=generator) if lifting else {}
         xe, xo_list = self.transform.encode(x, **kw)
-        info_xe, info_xo_list, xe_qnt, xo_qnt = self.entropymodel(
-            xe, xo_list, training, generator)
+        with span("codec.entropy"):
+            info_xe, info_xo_list, xe_qnt, xo_qnt = self.entropymodel(
+                xe, xo_list, training, generator)
         xhat = self.transform.decode(xe_qnt, xo_qnt, **kw)
         return xhat, info_xe, info_xo_list
 
     def aux_loss(self) -> torch.Tensor:
-        return self.entropymodel.aux_loss()
+        with span("entropy.aux_loss"):
+            return self.entropymodel.aux_loss()
 
 
 class CodecWrapper(nn.Module):

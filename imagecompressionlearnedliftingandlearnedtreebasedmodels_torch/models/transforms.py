@@ -9,6 +9,8 @@ learned-lifting transforms interleave (LH, HL, HH) per channel
 HL and HH blocks, and BasicWavelet passes its conv's last 3C channels.
 ``QuincunxLiftingTransform``'s ``encode``/``decode`` also take
 ``training`` and the ``generator`` of its integer-lifting noise.
+Every ``encode`` and ``decode`` is a span, ``codec.encode`` and
+``codec.decode`` (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from ..ops.quincunx import (QuincunxHorVerNet, QuincunxLiftingNet,
                             quincunx_merge, quincunx_split,
                             split_mode_channels)
 from ..ops.subband_ae import make_subband_ae
+from ..utils.profiling import spanned
 
 
 class CDF97Transform(nn.Module):
@@ -43,11 +46,13 @@ class CDF97Transform(nn.Module):
             make_subband_ae(cfg.autoencoder, 3 * c, dt)
             for _ in range(cfg.dwtlevels)])
 
+    @spanned("codec.encode")
     def encode(self, x: torch.Tensor):
         ll, highs = dwt97.dwt97_forward(x, self.cfg.dwtlevels)
         return self.yl_ae.encode(ll), [ae.encode(h)
                                        for ae, h in zip(self.yh_ae, highs)]
 
+    @spanned("codec.decode")
     def decode(self, xe: torch.Tensor, xo_list) -> torch.Tensor:
         return dwt97.dwt97_inverse(
             self.yl_ae.decode(xe),
@@ -87,6 +92,7 @@ class LearnedLiftingTransform(nn.Module):
     def _stage(self, level: int) -> LiftStage:
         return self.stages[0 if self.cfg.block_property == "same" else level]
 
+    @spanned("codec.encode")
     def encode(self, x: torch.Tensor):
         ll = x
         xo_list: List[torch.Tensor] = []
@@ -96,6 +102,7 @@ class LearnedLiftingTransform(nn.Module):
                 dwt97.pack_details(lh, hl, hh)))
         return self.yl_ae.encode(ll), xo_list
 
+    @spanned("codec.decode")
     def decode(self, xe: torch.Tensor, xo_list) -> torch.Tensor:
         ll = self.yl_ae.decode(xe)
         for lvl in range(self.cfg.dwtlevels - 1, -1, -1):
@@ -147,6 +154,7 @@ class BasicWaveletTransform(nn.Module):
         self.add_module(name, module)
         return module
 
+    @spanned("codec.encode")
     def encode(self, x: torch.Tensor):
         c = self.cfg.clrch
         ll = x
@@ -159,6 +167,7 @@ class BasicWaveletTransform(nn.Module):
             xo_list.append(self.yh_ae[i].encode(details))
         return self.yl_ae.encode(ll), xo_list
 
+    @spanned("codec.decode")
     def decode(self, xe: torch.Tensor, xo_list) -> torch.Tensor:
         levels = self.cfg.dwtlevels
         ll = self.yl_ae.decode(xe)
@@ -193,6 +202,7 @@ class AttentionWaveletTransform(nn.Module):
             for _ in range(cfg.dwtlevels)])
         self.postprocess = CBAMPostProcessing(c) if with_postprocess else None
 
+    @spanned("codec.encode")
     def encode(self, x: torch.Tensor):
         ll, highs = dwt97.dwt97_forward(x, self.cfg.dwtlevels)
         lh, hl, _ = dwt97.unpack_details(highs[-1])
@@ -200,6 +210,7 @@ class AttentionWaveletTransform(nn.Module):
         return self.yl_ae.encode(ll), [ae.encode(h)
                                        for ae, h in zip(self.yh_ae, highs)]
 
+    @spanned("codec.decode")
     def decode(self, xe: torch.Tensor, xo_list) -> torch.Tensor:
         xhat = dwt97.dwt97_inverse(
             self.yl_ae.decode(xe),
@@ -256,6 +267,7 @@ class QuincunxLiftingTransform(nn.Module):
                              "torch.Generator for its noise")
         return generator
 
+    @spanned("codec.encode")
     def encode(self, x: torch.Tensor, training: bool = False,
                generator=None):
         gen = self._noise(training, generator)
@@ -267,6 +279,7 @@ class QuincunxLiftingTransform(nn.Module):
             xo_list.append(ae.encode(xo))
         return self.yl_ae.encode(xe), xo_list
 
+    @spanned("codec.decode")
     def decode(self, xe: torch.Tensor, xo_list, training: bool = False,
                generator=None) -> torch.Tensor:
         gen = self._noise(training, generator)

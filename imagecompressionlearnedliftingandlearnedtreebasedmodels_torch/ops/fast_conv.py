@@ -52,6 +52,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.profiling import spanned
 from .conv3x3_halo import conv3x3_halo
 
 # planes of at least this many pixels take the matmul forms (the JAX
@@ -345,7 +346,8 @@ class FastConv3x3(nn.Module):
     ``use_bias=False``). ``dtype=None`` runs fp32 operands: on the card the
     register-tiled kernel of ``csrc/conv3x3_halo.cu`` (exact fp32 FFMAs on
     the CUDA cores); ``dtype=bfloat16`` runs bf16 operands: on the card the
-    tensor-core kernel of ``csrc/conv_v2.cu``."""
+    tensor-core kernel of ``csrc/conv_v2.cu``. A call is the span
+    ``conv3x3`` (``utils/profiling.py``)."""
 
     def __init__(self, cin: int, cout: int, dtype=None, bias: bool = True):
         super().__init__()
@@ -353,6 +355,7 @@ class FastConv3x3(nn.Module):
         self.weight = nn.Parameter(torch.zeros(cout, cin, 3, 3))
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
 
+    @spanned("conv3x3")
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = conv3x3_halo(x, self.weight, self.dtype or torch.float32)
         return y if self.bias is None else y + self.bias.view(1, -1, 1, 1)

@@ -7,6 +7,9 @@
   GDN/IGDN, a spatial context-aware compander (the paper's main configs).
   Its 3x3 convs run through ``conv3x3_halo``.
 - ``IdentityAE``: no-op.
+
+The two companders' ``encode`` and ``decode`` are the spans
+``subband_ae.encode`` and ``subband_ae.decode`` (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..utils.profiling import spanned
 from . import register_list
 from .fast_conv import Conv2d, FastConv3x3
 from .gdn import GDN
@@ -43,9 +47,11 @@ class SubbandAutoEncoder(nn.Module):
             x = torch.tanh(layer(x))
         return layers[-1](x)
 
+    @spanned("subband_ae.encode")
     def encode(self, x: torch.Tensor) -> torch.Tensor:
         return self._run(self.down, x)
 
+    @spanned("subband_ae.decode")
     def decode(self, y: torch.Tensor) -> torch.Tensor:
         return self._run(self.up, y)
 
@@ -72,11 +78,13 @@ class SubbandAutoEncoderBerk(nn.Module):
             self, "up_gdn", [GDN(c, inverse=True, dtype=dtype)
                              for c in gdn_widths])
 
+    @spanned("subband_ae.encode")
     def encode(self, x: torch.Tensor) -> torch.Tensor:
         for layer, gdn in zip(self.down[:-1], self.down_gdn):
             x = gdn(layer(x))
         return self.down[-1](x).float()
 
+    @spanned("subband_ae.decode")
     def decode(self, y: torch.Tensor) -> torch.Tensor:
         for layer, gdn in zip(self.up[:-1], self.up_gdn):
             y = gdn(layer(y))

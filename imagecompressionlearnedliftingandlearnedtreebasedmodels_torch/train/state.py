@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import itertools
 import time
 from types import SimpleNamespace
 from typing import Callable, Optional, Tuple
@@ -29,6 +30,7 @@ from torch import nn
 
 from ..config import Config, full_fp32, resolve_device
 from ..ops import color, conv3x3_halo, conv_v2, lift97
+from ..utils.profiling import COUNTERS, device_phase, record_phases, span
 from .loss import RDLossOutput, rd_loss3
 
 
@@ -44,9 +46,11 @@ def apply_color_forward(cfg: Config, model: nn.Module, x: torch.Tensor,
         xs = x - 0.5
         xhat, info_xe, info_xo, aux = model(xs, training, generator)
         return xs, xhat, info_xe, info_xo, aux
-    y = color.shift_ycbcr(color.rgb_to_ycbcr(x))
+    with span("color"):
+        y = color.shift_ycbcr(color.rgb_to_ycbcr(x))
     yhat, info_xe, info_xo, aux = model(y, training, generator)
-    xhat = color.ycbcr_to_rgb(color.unshift_ycbcr(yhat))
+    with span("color"):
+        xhat = color.ycbcr_to_rgb(color.unshift_ycbcr(yhat))
     return x - 0.5, xhat - 0.5, info_xe, info_xo, aux
 
 
@@ -118,17 +122,27 @@ def _train_body(cfg: Config, model: nn.Module,
     be floats or device scalars. The ``grad_acc_iters`` quirk of the
     original (loss divided by the divisor but the optimizer stepped every
     iteration) is reproduced by the 1/k loss scale; the aux loss is added
-    to the loss."""
+    to the loss.
+
+    The step's phases are the spans ``train.forward`` (the color policy,
+    the model, the loss), ``train.backward`` and ``train.optimizer`` (the
+    gradients' reset, which launches nothing, and Adam's update); inside a
+    graph's recording the last three are timed on the device
+    (``utils/profiling.py::device_phase``)."""
     loss_scale = 1.0 / max(cfg.grad_acc_iters, 1)
 
     def body(x, generator, rate_weight, lam):
         model.train()
-        optimizer.zero_grad(set_to_none=True)
-        xs, xhat, info_xe, info_xo, aux = apply_color_forward(
-            cfg, model, x, True, generator)
-        out = rd_loss3(xs, xhat, info_xe, info_xo, lam, rate_weight)
-        ((out.loss + aux) * loss_scale).backward()
-        optimizer.step()
+        with span("train.optimizer"):
+            optimizer.zero_grad(set_to_none=True)
+        with device_phase("train.forward"):
+            xs, xhat, info_xe, info_xo, aux = apply_color_forward(
+                cfg, model, x, True, generator)
+            out = rd_loss3(xs, xhat, info_xe, info_xo, lam, rate_weight)
+        with device_phase("train.backward"):
+            ((out.loss + aux) * loss_scale).backward()
+        with device_phase("train.optimizer"):
+            optimizer.step()
         return out, aux
 
     return body
@@ -220,7 +234,11 @@ class PlainChain:
     Tensor (k, 4)``: k eager steps of ``body`` one after another, each on its
     batch of the chunk, at one (lr, rate_weight, lam); the rows are (loss,
     mse, rate1, rate2). ``take`` cuts this rank's share out of the chunk
-    (the whole of it on one device)."""
+    (the whole of it on one device).
+
+    A call is the span ``chain.call`` (its ``req`` the call's index) around
+    ``chain.scalars``, each step's ``chain.upload`` and body, and
+    ``chain.rows``."""
 
     form = "plain"
 
@@ -229,17 +247,25 @@ class PlainChain:
         self.k, self.lam, self.body = k, lam, body
         self.optimizer, self.device = optimizer, torch.device(device)
         self.take = take or (lambda x: x)
+        self.calls = itertools.count()
 
     def __call__(self, batches, generator, lr: float, rate_weight: float,
                  lam: Optional[float] = None) -> torch.Tensor:
+        with span("chain.call", next(self.calls)):
+            return self._call(batches, generator, lr, rate_weight, lam)
+
+    def _call(self, batches, generator, lr, rate_weight, lam):
         lam = self.lam if lam is None else lam
         x = self.take(_host_batches(batches, self.k))
-        set_lr(self.optimizer, lr)
+        with span("chain.scalars"):
+            set_lr(self.optimizer, lr)
         rows = []
         for i in range(self.k):
-            xi = unit_float(x[i].to(self.device)).permute(0, 3, 1, 2)
+            with span("chain.upload"):
+                xi = unit_float(x[i].to(self.device)).permute(0, 3, 1, 2)
             rows.append(_row(self.body(xi, generator, rate_weight, lam)[0]))
-        return torch.stack(rows)
+        with span("chain.rows"):
+            return torch.stack(rows)
 
 
 class GraphChain(PlainChain):
@@ -264,7 +290,15 @@ class GraphChain(PlainChain):
     that fails raises. The kernels' launch counters count the graph's
     launches once per replay (the capture itself runs nothing). A graph
     whose parameters or optimizer state have moved since its capture (a
-    state dict loaded into new tensors) is captured again."""
+    state dict loaded into new tensors) is captured again.
+
+    A call is the span ``chain.call`` around ``chain.upload`` (the wait on
+    the last copy out of the pinned buffer included), ``chain.scalars``,
+    ``chain.replay`` and ``chain.rows``. The body's timed phases are
+    recorded into the graph as timing events; a replay launched while a
+    profiler records hands them to ``utils/profiling.py::COUNTERS``, which
+    reads them once they have completed, and where the capture's seconds
+    are kept."""
 
     form = "graph"
     WARMUP_STEPS = 2
@@ -294,8 +328,9 @@ class GraphChain(PlainChain):
     def _fingerprint(self):
         return tuple(t.data_ptr() for t in self._state_tensors())
 
-    def __call__(self, batches, generator, lr: float, rate_weight: float,
-                 lam: Optional[float] = None) -> torch.Tensor:
+    def _call(self, batches, generator, lr, rate_weight, lam):
+        # the last replay's events record again in this one: read them now
+        COUNTERS.settle()
         lam = self.lam if lam is None else lam
         x = self.take(_host_batches(batches, self.k))
         key = (tuple(x.shape), x.dtype)
@@ -311,32 +346,35 @@ class GraphChain(PlainChain):
                              "generator it was captured with")
         self._upload(cap, x)
         self._scalars(cap, lr, rate_weight, lam)
-        cap.graph.replay()
-        _add_launches(cap.launches)
-        self.replays += 1
-        return cap.rows.clone()
+        with span("chain.replay"):
+            cap.graph.replay()
+            _add_launches(cap.launches)
+            self.replays += 1
+        COUNTERS.replayed(cap.phases, self.k)
+        with span("chain.rows"):
+            return cap.rows.clone()
 
     @property
     def captured(self):
         """Per chunk shape: the capture's seconds (in all, the eager
         warm-up's, the recording's with the graph's instantiation) and the
-        graph's kernel launches a replay, by counter."""
-        return {key: {"capture_s": cap.capture_s, "warmup_s": cap.warmup_s,
-                      "record_s": cap.record_s, "launches": dict(zip(
-                          (f"{m.__name__.rsplit('.', 1)[1]}.{a}"
-                           for m, a in _launch_counters()), cap.launches))}
-                for key, cap in self._graphs.items()}
+        graph's kernel launches a replay, by counter, as
+        ``utils/profiling.py::COUNTERS`` keeps them."""
+        return {key: dict(cap.stats) for key, cap in self._graphs.items()}
 
     def _upload(self, cap, x: torch.Tensor) -> None:
-        cap.copied.synchronize()     # the last copy out of the pinned buffer
-        cap.pinned.copy_(x)
-        cap.static_in.copy_(cap.pinned, non_blocking=True)
-        cap.copied.record()
+        with span("chain.upload"):
+            # the last copy out of the pinned buffer
+            cap.copied.synchronize()
+            cap.pinned.copy_(x)
+            cap.static_in.copy_(cap.pinned, non_blocking=True)
+            cap.copied.record()
 
     def _scalars(self, cap, lr, rate_weight, lam) -> None:
-        set_lr(self.optimizer, lr)
-        cap.rate_weight.fill_(float(rate_weight))
-        cap.lam.fill_(float(lam))
+        with span("chain.scalars"):
+            set_lr(self.optimizer, lr)
+            cap.rate_weight.fill_(float(rate_weight))
+            cap.lam.fill_(float(lam))
 
     def _steps(self, cap, n: int, generator) -> None:
         for i in range(n):
@@ -377,16 +415,20 @@ class GraphChain(PlainChain):
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(generator)
         before = [getattr(m, a) for m, a in _launch_counters()]
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph), record_phases() as phases:
             self._steps(cap, self.k, generator)
         cap.launches = [getattr(m, a) - b
                         for (m, a), b in zip(_launch_counters(), before)]
         _add_launches([-n for n in cap.launches])
         torch.cuda.synchronize(dev)
-        cap.graph = graph
+        cap.graph, cap.phases = graph, phases
         cap.fingerprint = self._fingerprint()
-        cap.capture_s = time.perf_counter() - t0
-        cap.record_s = cap.capture_s - cap.warmup_s
+        capture_s = time.perf_counter() - t0
+        cap.stats = COUNTERS.capture(
+            capture_s=capture_s, warmup_s=cap.warmup_s,
+            record_s=capture_s - cap.warmup_s, launches=dict(zip(
+                (f"{m.__name__.rsplit('.', 1)[1]}.{a}"
+                 for m, a in _launch_counters()), cap.launches)))
         return cap
 
     @torch.no_grad()
@@ -464,21 +506,29 @@ def make_eval_step(cfg: Config, model: nn.Module, device=None
 
     ``batch`` is NCHW RGB in [0, 1]; it is moved to the device. ``xhat`` is
     the clipped reconstruction in [-0.5, 0.5].
+
+    A call is the span ``eval.step`` (its ``req`` the call's index) around
+    ``eval.upload``, the color policy's ``color`` and the model's spans,
+    and ``eval.loss``.
     """
     dev = resolve_device(device)
     full_fp32()
     model.to(dev)
+    calls = itertools.count()
 
     @torch.inference_mode()
     def eval_step(batch: torch.Tensor, lam: Optional[float] = None):
         if lam is None:
             lam = cfg.lambda_
-        model.eval()
-        batch = batch.to(dev, torch.float32)
-        xs, xhat, info_xe, info_xo, _ = apply_color_forward(
-            cfg, model, batch)
-        xhat = torch.clamp(xhat, -0.5, 0.5)
-        return rd_loss3(xs, xhat, info_xe, info_xo, lam, 1.0), xhat
+        with span("eval.step", next(calls)):
+            model.eval()
+            with span("eval.upload"):
+                batch = batch.to(dev, torch.float32)
+            xs, xhat, info_xe, info_xo, _ = apply_color_forward(
+                cfg, model, batch)
+            with span("eval.loss"):
+                xhat = torch.clamp(xhat, -0.5, 0.5)
+                return rd_loss3(xs, xhat, info_xe, info_xo, lam, 1.0), xhat
 
     return eval_step
 

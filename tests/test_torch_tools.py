@@ -11,7 +11,7 @@
   ``tools/make_patches.py``: the pyramid montage's array, the montage's
   and the patches' pixels equal;
 - the small API: the mailer, the agent registry, ``rate_loss``,
-  ``annotate``/``device_trace`` and the agent's ``imshow_validation``;
+  ``span`` in a ``DeviceTrace`` and the agent's ``imshow_validation``;
 - ``tools/weight_import.py``: a seeded state dict under the original
   repo's names through the JAX package's importer, then
   ``state_dict_from_flax``, equals the port's import bit for bit, with the
@@ -306,16 +306,22 @@ def test_rate_loss_matches():
 
 
 def test_annotate_and_device_trace(tmp_path):
-    with pprof.device_trace(str(tmp_path), "cpu") as path:
-        with pprof.annotate("my_region"):
-            torch.ones(4).sum()
+    """``span`` inside a ``DeviceTrace`` window is a range of its
+    ``trace.json`` (with ``req`` in its name), and one of any profiler's;
+    outside a profiler it is the shared null context."""
+    trace = pprof.DeviceTrace(str(tmp_path), "cpu")
+    trace.start()
+    with pprof.span("my_region", req=3):
+        torch.ones(4).sum()
+    path = trace.stop()
     with open(path) as fh:
-        trace = json.load(fh)
-    assert any(e.get("name") == "my_region" for e in trace["traceEvents"])
+        events = json.load(fh)["traceEvents"]
+    assert any(e.get("name") == "my_region#3" for e in events)
     with torch.profiler.profile() as prof:
-        with pprof.annotate("other_region"):
+        with pprof.span("other_region"):
             torch.ones(4).sum()
     assert "other_region" in {e.key for e in prof.key_averages()}
+    assert pprof.span("off") is pprof.span("off", req=1)
 
 
 @pytest.fixture(scope="module")
