@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--only conv1x1g_kernel]
 
 Run from a checkout of the repository on a machine with one CUDA card.
+``--only`` runs the card and build phases and then that phase alone.
 Each phase prints one JSON line; any fault ends the run with a non-zero
 exit code and no result line:
 
 1. card    the card's name and power limit (nvidia-smi) and torch's name;
-2. build   ``csrc/conv3x3_halo.cu``, ``csrc/conv_v2.cu`` and ``csrc/lift97.cu``
-           compiled with nvcc for sm_90a and the host C++ coding libraries
-           (``csrc/rans.cpp``, ``csrc/wavefront_ctx.cpp``) with g++, all at
-           once, with the flags each was built with;
+2. build   ``csrc/conv3x3_halo.cu``, ``csrc/conv_v2.cu``, ``csrc/lift97.cu``
+           and ``csrc/conv1x1g.cu`` compiled with nvcc for sm_90a and the
+           host C++ coding libraries (``csrc/rans.cpp``,
+           ``csrc/wavefront_ctx.cpp``) with g++, all at once, with the flags
+           each was built with;
 3. kernel  the fp32 conv kernel (conv3x3_halo, CUDA cores) launched directly
            against its plain PyTorch version at every distinct eval-path
            shape (B=8, 512x768), fp32 operands, with its time, the plain
@@ -31,6 +33,17 @@ exit code and no result line:
            operand copies alone (``pad_ms``), the launch plan (N tile,
            stages, dynamic shared memory) and the kernel's registers and
            spills from the build log;
+5a. conv1x1g_kernel  the fp32 grouped 1x1 conv (``csrc/conv1x1g.cu``)
+           against ``conv1x1g_plain`` at every distinct grouped 1x1 shape of
+           the cells' paths: the CDF97 and fp32 flagship eval steps (B=8
+           512x768: the pointwise AEs, ZTsep's cgp stacks) and the flagship
+           train step (B=8 256x256: forward, dx on the transposed weight,
+           the dk product); per shape its time, the plan (M and pixel tiles),
+           the bound, the plain version's time, cuDNN's grouped conv and
+           the fp32 batched-product form; the sums a step; then its
+           launches gated at 40 a CDF97 eval step, 36 an fp32 flagship one
+           and 36 + 36 dx a flagship train step (a chained step's capture
+           warm-up and one replay);
 6. parity  the flagship codec in fp32 on one 256x256 image, on the card and
            on the CPU (plain versions), with the committed lambda=2000
            weights: loss, mse, rates and xhat must agree;
@@ -5105,6 +5118,200 @@ def phase_weight_import(torch, np, pkg, counts):
     return res
 
 
+# --- the fp32 grouped 1x1 conv (phase conv1x1g_kernel) ---------------------
+
+C1_TOL = 1e-4             # kernel against plain: fp32 sums in another order
+C1_CHAINED_K = 2          # the train gate's graph: steps a replay
+
+
+def conv1x1g_shapes(cfg, size):
+    """Distinct (h, w, cin, cout, groups) of the path's fp32 grouped 1x1
+    convs on H x W images, each with its forward launches per step: the
+    pointwise AEs' down and up stacks (``SubbandAutoEncoder``: one a level,
+    in_ch 3*clrch, and one for LL, in_ch clrch) and ZTsep's cgp stack (one a
+    finer level), on every plane."""
+    height, width = size
+    planes = 3 if cfg.clrch == 1 else 1
+    L = cfg.dwtlevels
+    so = 3 * cfg.clrch
+    counts = {}
+
+    def add(h, w, g, widths, n):
+        for cin, cout in widths:
+            key = (h, w, cin, cout, g)
+            counts[key] = counts.get(key, 0) + n * planes
+
+    def ae(ic):
+        return [(ic, 32 * ic), (32 * ic, 32 * ic), (32 * ic, 32 * ic),
+                (32 * ic, ic)]
+
+    if cfg.autoencoder == "SubbandAutoEncoder":
+        for lvl in range(1, L + 1):
+            add(height >> lvl, width >> lvl, so, ae(so), 2)
+        add(height >> L, width >> L, cfg.clrch, ae(cfg.clrch), 2)
+    if cfg.entropy_layer == "conditioned2ZTsepSubbands":
+        f = 2 * 81 * so
+        for lvl in range(1, L):
+            add(height >> lvl, width >> lvl, so,
+                [(f, f), (f, f // 3), (f // 3, f // 9), (f // 9, 2 * so)], 1)
+    return counts
+
+
+def conv1x1g_bound(n, cin, cout, groups):
+    """(least ms, GFLOP, what bounds it) of a grouped 1x1 conv over ``n``
+    pixels on an H100 SXM: the larger of its FLOPs over fp32's 67 TFLOP/s
+    and its bytes (input, output and weight once each) over 3.35 TB/s."""
+    flops = 2.0 * n * cin * cout / groups
+    nbytes = 4.0 * (n * (cin + cout) + cin * cout / groups)
+    t_flops, t_bytes = flops / PEAK_FLOPS["float32"], nbytes / PEAK_BYTES
+    return max(t_flops, t_bytes) * 1e3, flops / 1e9, \
+        "flops" if t_flops > t_bytes else "bytes"
+
+
+def conv1x1g_rows(torch, F, c1, fast_conv, cfg, b, size, train, tag):
+    """The kernel against its plain version at every shape of ``cfg``'s path
+    on ``b`` images of ``size``: forward (with the bias), and in ``train``
+    dx (the kernel on the transposed weight) and dk (the batched product),
+    with their times, the bound, the plain version's, cuDNN's grouped conv
+    and the fp32 batched-product form (the JAX package's matmul form)."""
+    from torch.nn.grad import conv2d_input, conv2d_weight
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    rows = []
+    for (h, w, cin, cout, g), per_step in sorted(
+            conv1x1g_shapes(cfg, size).items()):
+        k = cin // g
+        x = torch.randn(b, cin, h, w, device=DEV, generator=gen)
+        wt = torch.randn(cout, k, 1, 1, device=DEV, generator=gen) / k ** 0.5
+        bias = torch.randn(cout, device=DEV, generator=gen)
+        n = b * h * w
+        bound, gflop, bound_by = conv1x1g_bound(n, cin, cout, g)
+        plan = c1.launch_plan(b, h * w, g, k, cout // g)
+        c1.launches = 0
+        got = c1.launch_kernel(x, wt, bias, g)
+        torch.cuda.synchronize()
+        expect_launches(c1.launches, 1, f"conv1x1g at {x.shape}")
+        row = {"phase": "conv1x1g_kernel", "path": tag,
+               "x": [b, cin, h, w], "cout": cout, "groups": g,
+               "launches_per_step": per_step, "m_tile": plan.m_tile,
+               "n_tile": plan.n_tile, "bound_by": bound_by,
+               "gflop": gflop, "bound_ms": bound,
+               "err": rel_err(got, c1.conv1x1g_plain(x, wt, bias, g)),
+               "ms": time_ms(lambda: c1.launch_kernel(x, wt, bias, g), torch),
+               "plain_ms": time_ms(
+                   lambda: c1.conv1x1g_plain(x, wt, bias, g), torch),
+               "library_ms": time_ms(
+                   lambda: F.conv2d(x, wt, bias, groups=g), torch),
+               "bmm_ms": time_ms(lambda: fast_conv.grouped_conv1x1_einsum(
+                   x, wt, bias, g, torch.float32), torch)}
+        if train:
+            dy = torch.randn(b, cout, h, w, device=DEV, generator=gen)
+            want_dx, want_dk, _ = c1.conv1x1g_bwd_plain(x, wt, dy, g)
+            dx = c1.launch_kernel(dy, wt, None, g, transpose=True)
+            dk = c1.dk_product(x, dy, g)
+            row.update(
+                dx_err=rel_err(dx, want_dx), dk_err=rel_err(dk, want_dk),
+                dx_bound_ms=conv1x1g_bound(n, cout, cin, g)[0],
+                dx_ms=time_ms(lambda: c1.launch_kernel(
+                    dy, wt, None, g, transpose=True), torch),
+                dx_library_ms=time_ms(lambda: conv2d_input(
+                    x.shape, wt, dy, groups=g), torch),
+                dk_ms=time_ms(lambda: c1.dk_product(x, dy, g), torch),
+                dk_library_ms=time_ms(lambda: conv2d_weight(
+                    x, wt.shape, dy, groups=g), torch))
+            del dy, want_dx, want_dk, dx, dk
+        emit(row)
+        errs = [row[e] for e in ("err", "dx_err", "dk_err") if e in row]
+        if not max(errs) <= C1_TOL:
+            raise AssertionError(f"conv1x1g at {row['x']} -> {cout}: "
+                                 f"errors {errs}")
+        rows.append(row)
+        del x, wt, bias, got
+        torch.cuda.empty_cache()
+    return rows
+
+
+def conv1x1g_step_gates(torch, np, pkg, c1):
+    """The kernel's launches on the cells' paths: a CDF97 and an fp32
+    flagship eval step at B=8 512x768 (40 and 36: every grouped 1x1 conv,
+    no dx), and the fp32 flagship's graph-chained train step at B=8 256x256
+    (the capture's eager warm-up steps and one replay: 36 + 36 dx a step);
+    each eval step's ms beside."""
+    batch = eval_batch(torch, np, pkg)
+    res = {}
+    for name, cfg, want in (
+            ("cdf97", cdf97_config(pkg), 40),
+            ("flagship", pkg.config.flagship_config(), 36)):
+        step = pkg.state.make_eval_step(cfg, pkg.codec.CodecWrapper(cfg),
+                                        DEV)
+        step(batch)
+        torch.cuda.synchronize()
+        c1.launches = c1.launches_dx = 0
+        t0 = time.perf_counter()
+        for _ in range(STEPS):
+            step(batch)
+        torch.cuda.synchronize()
+        res[f"{name}_eval_ms_per_step"] = \
+            (time.perf_counter() - t0) * 1e3 / STEPS
+        res[f"{name}_eval_launches"] = c1.launches // STEPS
+        expect_launches((c1.launches, c1.launches_dx), (STEPS * want, 0),
+                        f"{STEPS} {name} eval steps")
+        del step
+        torch.cuda.empty_cache()
+    k = C1_CHAINED_K
+    cfg = pkg.config.flagship_config(learning_rate=TRAIN_LR,
+                                     steps_per_call=k)
+    model = pkg.codec.CodecWrapper(cfg).to(DEV)
+    chained = pkg.state.make_chained_train_step(
+        cfg, model, pkg.state.make_optimizer(cfg, model, capturable=True),
+        DEV)
+    warmup = min(pkg.state.GraphChain.WARMUP_STEPS, k)
+    c1.launches = c1.launches_dx = 0
+    chained(u8_chunk(np, pkg, k, TRAIN_B, TRAIN_P, seed=2),
+            torch.Generator(device=DEV).manual_seed(3), TRAIN_LR, 1.0)
+    torch.cuda.synchronize()
+    (_, cap), = chained.captured.items()
+    steps = warmup + k
+    res.update(train_steps=steps, train_launches_per_step=c1.launches // steps,
+               train_dx_per_step=c1.launches_dx // steps,
+               launches_per_replay={n: v for n, v in cap["launches"].items()
+                                    if n.startswith("conv1x1g")})
+    expect_launches((c1.launches, c1.launches_dx), (72 * steps, 36 * steps),
+                    f"the chained train step's {warmup} warm-up and {k} "
+                    f"replayed steps")
+    del chained, model
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_conv1x1g_kernel(torch, F, np, pkg, c1):
+    """The fp32 grouped 1x1 conv kernel at the cells' shapes (rows by
+    ``conv1x1g_rows``), the sums a step beside the bound, plain, cuDNN and
+    the batched-product form, and the launch gates
+    (``conv1x1g_step_gates``)."""
+    res = {"phase": "conv1x1g_per_step"}
+    with tf32_off(torch):
+        for tag, cfg, b, size, train in (
+                ("cdf97_eval", cdf97_config(pkg), B, (H, W), False),
+                ("flagship_eval", pkg.config.flagship_config(), B, (H, W),
+                 False),
+                ("flagship_train", pkg.config.flagship_config(), TRAIN_B,
+                 (TRAIN_P, TRAIN_P), True)):
+            rows = conv1x1g_rows(torch, F, c1, pkg.fast_conv, cfg, b, size,
+                                 train, tag)
+            keys = ["ms", "plain_ms", "library_ms", "bmm_ms", "bound_ms"]
+            if train:
+                keys += ["dx_ms", "dx_library_ms", "dx_bound_ms", "dk_ms",
+                         "dk_library_ms"]
+            res[tag] = {key: sum(r[key] * r["launches_per_step"]
+                                 for r in rows) for key in keys}
+            res[tag]["launches"] = sum(r["launches_per_step"] for r in rows)
+            res[tag]["roofline_pct"] = 100 * res[tag]["bound_ms"] \
+                / res[tag]["ms"]
+        res.update(conv1x1g_step_gates(torch, np, pkg, c1))
+    emit(res)
+    return res
+
+
 def tool_phases(torch, np, pkg, counts):
     """The tools (``rd_sweep_retest`` to ``weight_import``)."""
     res = {}
@@ -5120,7 +5327,11 @@ def tool_phases(torch, np, pkg, counts):
 
 
 def main() -> int:
-    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only", choices=["conv1x1g_kernel"],
+                    help="run the card and build phases, then this phase "
+                         "alone")
+    args = ap.parse_args()
 
     import numpy
     import torch
@@ -5141,8 +5352,8 @@ def main() -> int:
     from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.models import (
         codec, postprocess)
     from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.ops import (
-        color, conv3x3_halo as conv, conv_v2 as v2, dwt97, fast_conv, lift97,
-        lifting, masked_conv)
+        color, conv1x1g, conv3x3_halo as conv, conv_v2 as v2, dwt97,
+        fast_conv, lift97, lifting, masked_conv)
     from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.parallel import (
         mesh, tiling)
     from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.tools import (
@@ -5172,9 +5383,9 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
     t0 = time.perf_counter()
-    kernels = (conv, v2, lift97)
+    kernels = (conv, v2, lift97, conv1x1g)
     hosts = (rans.get_lib, native_ctx.ctx_fingerprint)
-    with concurrent.futures.ThreadPoolExecutor(5) as pool:  # one compiler each
+    with concurrent.futures.ThreadPoolExecutor(6) as pool:  # one compiler each
         for job in [pool.submit(m.build) for m in kernels] \
                 + [pool.submit(f) for f in hosts]:
             job.result()
@@ -5189,6 +5400,11 @@ def main() -> int:
               "g++_flags": lib.flags_used}
               for lib in (native_build.RANS, native_build.WAVEFRONT_CTX)],
           "ctx_fp": native_ctx.ctx_fingerprint()})
+    if args.only == "conv1x1g_kernel":
+        phase_conv1x1g_kernel(torch, F, numpy, pkg, conv1x1g)
+        emit({"phase": "done", "seconds": time.perf_counter() - t_start})
+        print(card_line(), flush=True)
+        return 0
 
     res = {}
     cfg = config.flagship_config(dtype="bfloat16")
@@ -5196,6 +5412,8 @@ def main() -> int:
         rows = phase_kernel(torch, F, conv, cfg)
         bwd_rows = phase_kernel_bwd(torch, conv, cfg)
         v2_rows = phase_conv_v2_kernel(torch, F, conv, v2, cfg)
+    res["conv1x1g"] = phase_conv1x1g_kernel(torch, F, numpy, pkg, conv1x1g)
+    with tf32_off(torch):
         res["parity"] = phase_parity(torch, pkg, conv)
     with tf32_off(torch, deterministic=True):
         res["train_parity"] = phase_train_parity(torch, numpy, pkg, conv)

@@ -9,12 +9,16 @@
   (forward and dx alike).
 - :class:`Conv2d`: any other SAME conv (the CBAM head's convs, the
   restoration nets' dilated and 1x1 convs, the pointwise AE's grouped 1x1
-  convs). ``F.conv2d``, grouped or dilated where needed. With a compute
-  ``dtype`` it rounds as flax's ``nn.Conv(dtype=bf16)`` does: bf16 operands,
-  a bf16 output, the bias added in bf16.
+  convs). ``F.conv2d``, grouped or dilated where needed, except that an
+  fp32 grouped 1x1 conv (stride and dilation 1) on a CUDA tensor runs the
+  hand-written kernel of ``csrc/conv1x1g.cu`` with its bias fused
+  (:func:`.conv1x1g.conv1x1g`: ZTsep's fp32 cgp stacks, the pointwise
+  AEs). With a compute ``dtype`` it rounds as flax's
+  ``nn.Conv(dtype=bf16)`` does: bf16 operands, a bf16 output, the bias
+  added in bf16.
 - The JAX package's matmul forms of the grouped and 5x5 convs, with its
   names and its dispatch, used only with a compute dtype (an fp32 config
-  runs plain ``F.conv2d``):
+  runs :class:`Conv2d`'s path):
 
   * :class:`FastGroupedConv1x1` (ZTsep's cgp stack) ->
     :func:`grouped_conv1x1_einsum` on planes of 4096 pixels or more: one
@@ -53,6 +57,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..utils.profiling import spanned
+from .conv1x1g import conv1x1g
 from .conv3x3_halo import conv3x3_halo
 
 # planes of at least this many pixels take the matmul forms (the JAX
@@ -235,7 +240,9 @@ class Conv2d(nn.Module):
     flax's ``nn.Conv(dtype=bf16)`` rounds. A ``dilation`` pads ``dilation *
     (k // 2)`` on each side (flax's SAME for an odd kernel); ``stride`` 2
     keeps that padding (PyTorch's alignment, which the JAX package's DIDN
-    asks for explicitly, not flax's SAME).
+    asks for explicitly, not flax's SAME). Without a compute dtype, a
+    grouped 1x1 conv at stride and dilation 1 (``pointwise_grouped``) on a
+    CUDA tensor runs :func:`.conv1x1g.conv1x1g`, the bias added inside.
     """
 
     def __init__(self, cin: int, cout: int, kernel_size: int, groups: int = 1,
@@ -246,6 +253,8 @@ class Conv2d(nn.Module):
         self.dtype = dtype
         self.dilation, self.stride = dilation, stride
         self.padding = dilation * (kernel_size // 2)
+        self.pointwise_grouped = (kernel_size == 1 and groups > 1
+                                  and dilation == 1 and stride == 1)
         self.weight = nn.Parameter(
             torch.zeros(cout, cin // groups, kernel_size, kernel_size))
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
@@ -258,6 +267,8 @@ class Conv2d(nn.Module):
         return conv_lowp(x, weight, self.dtype, **kw)
 
     def conv(self, x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+        if self.pointwise_grouped and self.dtype is None and x.is_cuda:
+            return conv1x1g(x, weight, self.bias, self.groups)
         y = self._conv(x, weight)
         if self.dtype is None:
             return _add_bias(y, self.bias)

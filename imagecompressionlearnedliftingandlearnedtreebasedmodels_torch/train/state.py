@@ -29,7 +29,7 @@ import torch
 from torch import nn
 
 from ..config import Config, full_fp32, resolve_device
-from ..ops import color, conv3x3_halo, conv_v2, lift97
+from ..ops import color, conv1x1g, conv3x3_halo, conv_v2, lift97
 from ..utils.profiling import COUNTERS, device_phase, record_phases, span
 from .loss import RDLossOutput, rd_loss3
 
@@ -206,7 +206,8 @@ def _launch_counters():
     """(module, attribute) of every hand-written kernel's launch count."""
     return ((conv3x3_halo, "launches"), (conv3x3_halo, "launches_dx"),
             (conv_v2, "launches"), (conv_v2, "launches_dx"),
-            (lift97, "launches_lift"), (lift97, "launches_ilift"))
+            (lift97, "launches_lift"), (lift97, "launches_ilift"),
+            (conv1x1g, "launches"), (conv1x1g, "launches_dx"))
 
 
 def _add_launches(counts) -> None:

@@ -1,6 +1,8 @@
 """The hand-written kernels against their plain versions, on the card:
 the 3x3 conv Function forward and backward in both operand types (fp32:
-conv3x3_halo; bf16: the tensor-core conv_v2), each conv kernel alone, and
+conv3x3_halo; bf16: the tensor-core conv_v2), each conv kernel alone, the
+fp32 grouped 1x1 conv (conv1x1g) forward and backward and ``Conv2d``'s
+dispatch to it, and
 the CDF 9/7 ladder's analysis and synthesis kernels in all four uses, along
 one axis and over a whole level (adjoints, repeats, the launches of the
 multi-level transform and its backward); the tree-based entropy models
@@ -20,6 +22,7 @@ Skips where there is no CUDA device (as on the CPU test machines).
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch import (
     config)
@@ -28,7 +31,7 @@ from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.coding import
 from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.models import (
     codec)
 from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.ops import (
-    conv3x3_halo as conv, conv_v2, dwt97, lift97)
+    conv1x1g, conv3x3_halo as conv, conv_v2, dwt97, fast_conv, lift97)
 from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.tools import (
     weights)
 from imagecompressionlearnedliftingandlearnedtreebasedmodels_torch.train import (
@@ -304,6 +307,80 @@ def test_conv3x3_halo_refuses_bf16_operands_on_the_card(card):
     w9 = conv.tap_major(torch.randn(4, 8, 3, 3, device=card), torch.bfloat16)
     with pytest.raises(ValueError, match="conv_v2"):
         conv.launch_kernel(x.to(torch.bfloat16), w9)
+
+
+# the fp32 grouped 1x1 conv (conv1x1g): (B, H, W, Cin, Cout, groups) at the
+# main path's group shapes (ZTsep's cgp, the pointwise AEs) on small planes,
+# a ragged plane (4-byte copies) and a plane of one pixel
+C1_SHAPES = [
+    (2, 16, 24, 486, 486, 3), (2, 16, 24, 486, 162, 3),
+    (2, 16, 24, 162, 54, 3), (2, 16, 24, 54, 6, 3),
+    (2, 32, 48, 9, 288, 9), (2, 32, 48, 288, 288, 9), (2, 32, 48, 288, 9, 9),
+    (3, 13, 7, 96, 96, 3), (1, 1, 1, 3, 96, 3), (2, 37, 41, 486, 486, 3),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,cin,cout,groups", C1_SHAPES)
+def test_conv1x1g_matches_plain_forward_and_backward(card, b, h, w, cin, cout,
+                                                     groups):
+    """The Function on the card: the forward with its fused bias, and the
+    backward (dx through the kernel on the transposed weight, dk the batched
+    product, db the sum) against the plain versions; one launch forward and
+    one for dx; the same forward again gives bit-identical output, and so
+    does an x that is a channel slice of a wider tensor (strided rows) and
+    one whose storage is not 16-byte aligned (the 4-byte copies)."""
+    rng = np.random.RandomState(cin * cout + h)
+    f32 = np.float32
+    x = torch.from_numpy(rng.randn(b, cin, h, w).astype(f32)).to(card)
+    wt = torch.from_numpy((rng.randn(cout, cin // groups, 1, 1)
+                           / np.sqrt(cin // groups)).astype(f32)).to(card)
+    bias = torch.from_numpy(rng.randn(cout).astype(f32)).to(card)
+    dy = torch.from_numpy(rng.randn(b, cout, h, w).astype(f32)).to(card)
+    leaves = [t.clone().requires_grad_(True) for t in (x, wt, bias)]
+    conv1x1g.launches = conv1x1g.launches_dx = 0
+    y = conv1x1g.conv1x1g(*leaves, groups)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    assert (conv1x1g.launches, conv1x1g.launches_dx) == (2, 1)
+    want = conv1x1g.conv1x1g_plain(x, wt, bias, groups)
+    wants = conv1x1g.conv1x1g_bwd_plain(x, wt, dy, groups)
+    for got, ref in ((y.detach(), want), *zip(
+            [t.grad for t in leaves], wants)):
+        assert got.dtype == torch.float32 and got.shape == ref.shape
+        assert (got - ref).abs().max().item() / ref.abs().max().item() < TOL
+    with torch.no_grad():
+        again = conv1x1g.conv1x1g(x, wt, bias, groups)
+        wide = torch.cat([x, x[:, :4]], 1)[:, :cin]
+        buf = torch.empty(x.numel() + 1, device=card)[1:].view(x.shape)
+        buf.copy_(x)
+        assert torch.equal(again, y.detach())
+        assert torch.equal(conv1x1g.conv1x1g(wide, wt, bias, groups), again)
+        assert torch.equal(conv1x1g.conv1x1g(buf, wt, bias, groups), again)
+
+
+@pytest.mark.cuda
+def test_conv2d_runs_conv1x1g_only_for_fp32_grouped_1x1(card):
+    """An fp32 grouped 1x1 ``Conv2d`` on the card launches the kernel (and
+    its dx in the backward); its bf16 counterpart and a groups-1 1x1 conv
+    do not."""
+    x = torch.randn(2, 96, 8, 8, device=card, requires_grad=True)
+    conv1x1g.launches = conv1x1g.launches_dx = 0
+    for layer in (fast_conv.Conv2d(96, 96, 1, groups=3,
+                                   dtype=torch.bfloat16),
+                  fast_conv.Conv2d(96, 96, 1)):
+        layer.to(card)(x).sum().backward()
+    assert conv1x1g.launches == 0
+    layer = fast_conv.Conv2d(96, 96, 1, groups=3).to(card)
+    torch.nn.init.normal_(layer.weight)
+    y = layer(x)
+    y.sum().backward()
+    torch.cuda.synchronize()
+    assert (conv1x1g.launches, conv1x1g.launches_dx) == (2, 1)
+    want = F.conv2d(x.detach(), layer.weight.detach(), layer.bias.detach(),
+                    groups=3)
+    assert (y.detach() - want).abs().max().item() \
+        / want.abs().max().item() < TOL
 
 
 # the ladder: max |kernel - plain| / max |plain|; the same fp32 expressions,

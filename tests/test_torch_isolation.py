@@ -86,7 +86,7 @@ print("ok")
 def test_kernel_sources_are_in_the_package():
     csrc = os.path.join(ROOT, PORT, "csrc")
     assert sorted(f for f in os.listdir(csrc) if f.endswith(".cu")) == [
-        "conv3x3_halo.cu", "conv_v2.cu", "lift97.cu"]
+        "conv1x1g.cu", "conv3x3_halo.cu", "conv_v2.cu", "lift97.cu"]
 
 
 @pytest.mark.parametrize("name", ["rans_core.h", "rans.cpp",
