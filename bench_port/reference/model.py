@@ -1,25 +1,56 @@
-"""The plain reference of the two benchmarked codecs, in PyTorch alone.
+"""The plain reference of the benchmarked codecs, in PyTorch alone.
 
-A frozen, independent copy of the codec's mathematics: the learned-lifting
-flagship (LiftingBasedNeuralWaveletv4, Berk GDN autoencoders, the ZTsep
-zerotree + causal-context entropy model, three YCbCr planes) and the CDF
-9/7 + factorized codec (pointwise grouped autoencoders, learned-CDF
-bottlenecks, joint RGB). Every convolution is ``F.conv2d``; the 9/7 ladder
-is ``torch.roll`` arithmetic; nothing here imports the measured program or
-any kernel of it. Parameter names equal the program's, so one state dict
-(made by the benchmark from the seed) loads into both.
+A frozen, independent copy of the codec's mathematics. Every convolution is
+``F.conv2d``; nothing here imports the measured program or any kernel of
+it. Parameter names equal the program's, so one state dict (made by the
+benchmark from the seed) loads into both.
 
 The arithmetic follows the published model as the program states it:
 flax's SAME padding, compressAI's lower bound with its pass-through
 gradient, the Gaussian and learned-CDF likelihoods, bits normalised per
 pixel of a colour plane times 3, and the training noise drawn from one
-``torch.Generator`` in the model's order (per plane: LL, coarsest details,
-finer levels coarse to fine; each a context draw, then a likelihood draw).
+``torch.Generator`` in the model's order.
+
+This file holds what the parts share (the primitives, the likelihoods,
+the codec around its parts, the colour planes and ``rd_terms``). The parts
+are files found by the configuration's names, so that a configuration with
+a new part brings a file and edits none:
+
+- ``transform/<netType>.py``: ``build(transform, cfg)`` registers the
+  transform's own parameters on ``transform`` (before its autoencoders);
+  ``analysis(transform, x) -> (ll, details)`` is one level, the details
+  packed by :func:`pack`; ``synthesis(transform, ll, details) -> x`` is its
+  exact inverse;
+- ``autoencoder/<autoencoder>.py``: ``build(cfg, ic)`` returns a module with
+  ``encode`` and ``decode`` for a subband of ``ic`` channels;
+- ``entropy/<entropy_layer>.py``: ``build(cfg)`` returns a module with
+  ``forward(xe, xo, training, generator) -> (bits_xe, info, q_xe, q_xo)``
+  (``info`` and ``q_xo`` per level, finest first), which draws the training
+  noise from ``generator`` in the model's order, and ``aux_loss()``.
+
+A part file:
+
+- names its parameters as the program does (the state dict's keys, their
+  shapes and their order are the program's);
+- follows the seeder's conventions (``harness/weights.py``): 4-D
+  ``.weight`` kernels are drawn lecun-normal, ``.bias_<n>`` CDF biases
+  U(-0.5, 0.5), and every other parameter keeps the start it is built with;
+- builds its convolutions and products from :class:`Conv`, :class:`GDN`
+  and :class:`Bottleneck`, or gives its own an ``operand_round`` used as
+  theirs, so that the control (``checks.lower_precision``) rounds them;
+- imports nothing outside ``reference/`` but ``torch`` and the standard
+  library: this file, as ``from ..model import ...``.
+
+A configuration that names a part with no file fails at set-up with
+:class:`NoPart`, which names the file to add.
 """
 
 from __future__ import annotations
 
+import functools
+import importlib.util
 import math
+import os
 from typing import List
 
 import torch
@@ -34,6 +65,8 @@ PEDESTAL = NNP_OFFSET ** 2
 GDN_BETA_MIN = 1e-6
 SCALE_BOUND = 0.11
 LIKELIHOOD_BOUND = 1e-9
+HERE = os.path.dirname(os.path.abspath(__file__))
+ROOT = HERE     # where :func:`part` looks for the part files
 
 
 # --- primitives -------------------------------------------------------------
@@ -128,69 +161,6 @@ class GDN(nn.Module):
         return x * norm if self.inverse else x / norm
 
 
-# --- transforms -------------------------------------------------------------
-
-class PBlock(nn.Module):
-    def __init__(self, c, hidden, k):
-        super().__init__()
-        widths = [(c, hidden), (hidden, hidden), (hidden, hidden),
-                  (hidden, c)]
-        self.convs = add_list(self, "Conv", [Conv(i, o, k) for i, o in widths])
-
-    def forward(self, x):
-        c0, c1, c2, c3 = self.convs
-        r = c0(x)
-        t = torch.tanh(c1(torch.tanh(r)))
-        return c3(c2(t) + r)
-
-
-class SkipConv(nn.Module):
-    """3-tap depthwise conv along H, zero padded."""
-
-    def __init__(self, c, coeff, kind):
-        super().__init__()
-        pat = [0.0, coeff, coeff] if kind == "predict" else [coeff, coeff, 0.0]
-        self.taps = nn.Parameter(torch.tensor(pat)[:, None].repeat(1, c))
-
-    def forward(self, x):
-        n = x.shape[2]
-        xp = F.pad(x, (0, 0, 1, 1))
-        t = self.taps.view(3, 1, -1, 1, 1)
-        return t[0] * xp[:, :, :n] + t[1] * xp[:, :, 1:n + 1] \
-            + t[2] * xp[:, :, 2:n + 2]
-
-
-class LiftStage(nn.Module):
-    def __init__(self, c, hidden, k, pairs, res_weight):
-        super().__init__()
-        self.pairs, self.w = pairs, res_weight
-        skips = []
-        for p in range(pairs):
-            skips.append(SkipConv(c, (ALPHA, GAMMA)[p % 2], "predict"))
-            skips.append(SkipConv(c, (BETA, DELTA)[p % 2], "update"))
-        self.skips = add_list(self, "skips", skips)
-        self.p = add_list(self, "p_blocks",
-                          [PBlock(c, hidden, k) for _ in range(pairs)])
-        self.u = add_list(self, "u_blocks",
-                          [PBlock(c, hidden, k) for _ in range(pairs)])
-
-    def forward(self, lo, hi):
-        for p in range(self.pairs):
-            s = self.skips[2 * p](lo)
-            hi = hi + s + self.p[p](s) * self.w
-            s = self.skips[2 * p + 1](hi)
-            lo = lo + s + self.u[p](s) * self.w
-        return lo, hi
-
-    def inverse(self, lo, hi):
-        for p in range(self.pairs - 1, -1, -1):
-            s = self.skips[2 * p + 1](hi)
-            lo = lo - s - self.u[p](s) * self.w
-            s = self.skips[2 * p](lo)
-            hi = hi - s - self.p[p](s) * self.w
-        return lo, hi
-
-
 def pack(lh, hl, hh):
     s = torch.stack([lh, hl, hh], dim=2)
     b, c, _, h, w = s.shape
@@ -203,159 +173,31 @@ def unpack(xo):
     return s[:, :, 0], s[:, :, 1], s[:, :, 2]
 
 
-def merge_rows(even, odd):
-    b, c, h2, w = even.shape
-    return torch.stack([even, odd], dim=3).reshape(b, c, 2 * h2, w)
+class Stack(nn.Module):
+    """Conv -> LeakyReLU(0.01) -> ... -> Conv."""
 
-
-def lift_forward(stage, x):
-    lo, hi = stage(x[:, :, 0::2], x[:, :, 1::2])
-    b = x.shape[0]
-    t = torch.cat([lo.transpose(2, 3), hi.transpose(2, 3)], dim=0)
-    lt, ht = stage(t[:, :, 0::2], t[:, :, 1::2])
-    return (lt[:b].transpose(2, 3), lt[b:].transpose(2, 3),
-            ht[:b].transpose(2, 3), ht[b:].transpose(2, 3))  # ll lh hl hh
-
-
-def lift_inverse(stage, ll, lh, hl, hh):
-    b = ll.shape[0]
-    lt = torch.cat([ll.transpose(2, 3), lh.transpose(2, 3)], dim=0)
-    ht = torch.cat([hl.transpose(2, 3), hh.transpose(2, 3)], dim=0)
-    m = merge_rows(*stage.inverse(lt, ht))
-    return merge_rows(*stage.inverse(m[:b].transpose(2, 3),
-                                     m[b:].transpose(2, 3)))
-
-
-# CDF 9/7 ladders: (kind, coefficient) steps, P = 0, U = 1; (low, high) gains
-LADDER_F = (((0, ALPHA), (1, BETA), (0, GAMMA), (1, DELTA)), (NL, NH))
-LADDER_I = (((1, -DELTA), (0, -GAMMA), (1, -BETA), (0, -ALPHA)),
-            (1.0 / NL, 1.0 / NH))
-
-
-def _ladder(s, d, dim, steps):
-    for kind, c in steps:
-        if kind == 0:
-            d = d + c * (s + torch.roll(s, -1, dims=dim))
-        else:
-            s = s + c * (torch.roll(d, 1, dims=dim) + d)
-    return s, d
-
-
-def analysis(x, dim):
-    xr = x.unflatten(dim, (x.shape[dim] // 2, 2))
-    s, d = _ladder(xr.select(dim + 1, 0), xr.select(dim + 1, 1), dim,
-                   LADDER_F[0])
-    return s * LADDER_F[1][0], d * LADDER_F[1][1]
-
-
-def synthesis(lo, hi, dim):
-    s, d = _ladder(lo * LADDER_I[1][0], hi * LADDER_I[1][1], dim, LADDER_I[0])
-    return torch.stack([s, d], dim=dim + 1).flatten(dim, dim + 1)
-
-
-def dwt97_level(x):
-    low, high = analysis(x, 2)
-    ll, hl = analysis(low, 3)
-    lh, hh = analysis(high, 3)
-    return ll, pack(lh, hl, hh)
-
-
-def idwt97_level(ll, xo):
-    lh, hl, hh = unpack(xo)
-    return synthesis(synthesis(ll, hl, 3), synthesis(lh, hh, 3), 2)
-
-
-class PointwiseAE(nn.Module):
-    """Per-channel 1 -> 32 -> 32 -> 32 -> 1 tanh MLPs (grouped 1x1)."""
-
-    def __init__(self, ic):
+    def __init__(self, cin, feats, k, groups=1, mask=None, prefix="Conv"):
         super().__init__()
-        w = [(ic, 32 * ic), (32 * ic, 32 * ic), (32 * ic, 32 * ic),
-             (32 * ic, ic)]
-        self.down = add_list(self, "down", [Conv(i, o, 1, ic) for i, o in w])
-        self.up = add_list(self, "up", [Conv(i, o, 1, ic) for i, o in w])
+        layers = []
+        for i, f in enumerate(feats):
+            m = None if mask is None else ("A" if i == 0 else "B")
+            layers.append(Conv(cin, f, k, groups, m))
+            cin = f
+        self.layers = add_list(self, prefix, layers)
 
-    @staticmethod
-    def _run(layers, x):
-        for layer in layers[:-1]:
-            x = torch.tanh(layer(x))
-        return layers[-1](x)
-
-    def encode(self, x):
-        return self._run(self.down, x)
-
-    def decode(self, y):
-        return self._run(self.up, y)
+    def forward(self, x):
+        for i, layer in enumerate(self.layers):
+            x = layer(x)
+            if i < len(self.layers) - 1:
+                x = F.leaky_relu(x, 0.01)
+        return x
 
 
-class BerkAE(nn.Module):
-    def __init__(self, ic):
-        super().__init__()
-        w = [(ic, 32 * ic), (32 * ic, 64 * ic), (64 * ic, 32 * ic),
-             (32 * ic, ic)]
-        g = [32 * ic, 64 * ic, 32 * ic]
-        self.down = add_list(self, "down", [Conv(i, o, 3) for i, o in w])
-        self.down_gdn = add_list(self, "down_gdn", [GDN(c) for c in g])
-        self.up = add_list(self, "up", [Conv(i, o, 3) for i, o in w])
-        self.up_gdn = add_list(self, "up_gdn", [GDN(c, True) for c in g])
-
-    def encode(self, x):
-        for layer, gdn in zip(self.down[:-1], self.down_gdn):
-            x = gdn(layer(x))
-        return self.down[-1](x)
-
-    def decode(self, y):
-        for layer, gdn in zip(self.up[:-1], self.up_gdn):
-            y = gdn(layer(y))
-        return self.up[-1](y)
+def up2(x):
+    return x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
 
 
-def make_ae(kind, ic):
-    return {"SubbandAutoEncoder": PointwiseAE,
-            "SubbandAutoEncoderBerk": BerkAE}[kind](ic)
-
-
-class Transform(nn.Module):
-    """``LiftingBasedNeuralWaveletv4`` (one shared stage) or ``CDF97``."""
-
-    def __init__(self, cfg):
-        super().__init__()
-        c, self.levels = cfg["clrch"], cfg["dwtlevels"]
-        self.learned = cfg["netType"] == "LiftingBasedNeuralWaveletv4"
-        if self.learned:
-            if cfg["block_property"] != "same" or cfg["scale"] \
-                    or not cfg["linearity_flag"]:
-                raise ValueError("the reference lifts with one shared "
-                                 "nonlinear stage and no learned gains")
-            self.stages = add_list(self, "stages", [LiftStage(
-                c, cfg["depth_scale"] * 8 * c, cfg["filtersize"],
-                cfg["num_lifting_perlayer"],
-                cfg["res_connection_weight"])])
-        self.yl_ae = make_ae(cfg["autoencoder"], c)
-        self.yh_ae = add_list(self, "yh_ae", [
-            make_ae(cfg["autoencoder"], 3 * c) for _ in range(self.levels)])
-
-    def encode(self, x):
-        ll, xo = x, []
-        for lvl in range(self.levels):
-            if self.learned:
-                ll, lh, hl, hh = lift_forward(self.stages[0], ll)
-                pk = pack(lh, hl, hh)
-            else:
-                ll, pk = dwt97_level(ll)
-            xo.append(self.yh_ae[lvl].encode(pk))
-        return self.yl_ae.encode(ll), xo
-
-    def decode(self, xe, xo):
-        ll = self.yl_ae.decode(xe)
-        for lvl in range(self.levels - 1, -1, -1):
-            pk = self.yh_ae[lvl].decode(xo[lvl])
-            ll = lift_inverse(self.stages[0], ll, *unpack(pk)) if self.learned \
-                else idwt97_level(ll, pk)
-        return ll
-
-
-# --- entropy models ---------------------------------------------------------
+# --- likelihoods ------------------------------------------------------------
 
 class Bottleneck(nn.Module):
     """Per-channel learned CDF (filters 3, 3, 3, 3; init scale 10).
@@ -413,27 +255,6 @@ class Bottleneck(nn.Module):
         return q, -torch.log2(lik.reshape(shape).transpose(0, 1))
 
 
-class Factorized(nn.Module):
-    def __init__(self, cfg):
-        super().__init__()
-        c = cfg["clrch"]
-        self.eb_xo = add_list(self, "eb_xo", [
-            Bottleneck(3 * c) for _ in range(cfg["dwtlevels"])])
-        self.eb_xe = Bottleneck(c)
-
-    def forward(self, xe, xo, training, generator):
-        info_xo, q_xo = [], []
-        for eb, x in zip(self.eb_xo, xo):
-            q, bits = eb(x, training, generator)
-            q_xo.append(q)
-            info_xo.append(bits)
-        q_xe, bits_xe = self.eb_xe(xe, training, generator)
-        return bits_xe, info_xo, q_xe, q_xo
-
-    def aux_loss(self):
-        return self.eb_xe.aux_loss() + sum(eb.aux_loss() for eb in self.eb_xo)
-
-
 def gaussian_bits(x, sigma, mu, training, generator):
     q = quantize(x, training, generator, None if training else mu)
     v = torch.abs(q - mu)
@@ -447,90 +268,70 @@ def gaussian_bits(x, sigma, mu, training, generator):
     return -torch.log2(lik)
 
 
-class Stack(nn.Module):
-    """Conv -> LeakyReLU(0.01) -> ... -> Conv."""
+# --- the codec, from its parts ----------------------------------------------
 
-    def __init__(self, cin, feats, k, groups=1, mask=None, prefix="Conv"):
-        super().__init__()
-        layers = []
-        for i, f in enumerate(feats):
-            m = None if mask is None else ("A" if i == 0 else "B")
-            layers.append(Conv(cin, f, k, groups, m))
-            cin = f
-        self.layers = add_list(self, prefix, layers)
-
-    def forward(self, x):
-        for i, layer in enumerate(self.layers):
-            x = layer(x)
-            if i < len(self.layers) - 1:
-                x = F.leaky_relu(x, 0.01)
-        return x
+class NoPart(LookupError):
+    """The reference has no file for a part that the configuration names."""
 
 
-def up2(x):
-    return x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+def part(family: str, name: str, root: str | None = None):
+    """The part module ``<root>/<family>/<name>.py`` (``root`` by default
+    :data:`ROOT`, read at the call), loaded once a process under this
+    package, so that its ``from ..model import ...`` finds this file."""
+    return _load(family, name, ROOT if root is None else root)
 
 
-class ZTSep(nn.Module):
+@functools.lru_cache(maxsize=None)
+def _load(family: str, name: str, root: str):
+    path = os.path.join(root, family, f"{name}.py")
+    if not os.path.isfile(path):
+        raise NoPart(f"the reference has no {family} part {name!r}: add "
+                     f"{path}")
+    spec = importlib.util.spec_from_file_location(
+        f"{__package__}.{family}.{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+class Transform(nn.Module):
+    """``dwtlevels`` levels of the ``netType`` part, with an ``autoencoder``
+    part on each level's details (``yh_ae_<i>``) and on the last LL band
+    (``yl_ae``)."""
+
     def __init__(self, cfg):
         super().__init__()
-        c, levels = cfg["clrch"], cfg["dwtlevels"]
-        so = 3 * c
-        wide = 81 * so
-        self.so, self.levels = so, levels
-        self.plc = add_list(self, "plc", [
-            Stack(so, (wide, wide), 3) for _ in range(levels - 1)])
-        self.csc = add_list(self, "csc", [
-            Conv(so, wide, 5, so, "A") for _ in range(levels - 1)])
-        self.cgp = add_list(self, "cgp", [
-            Stack(2 * wide, (2 * wide, 2 * wide // 3, 2 * wide // 9, 2 * so),
-                  1, so) for _ in range(levels - 1)])
-        self.pixelcnn_xo = Stack(so, (wide, wide, wide // 3, wide // 9,
-                                      2 * so), 3, so, "A", "MaskedConv2d")
-        self.pixelcnn_xe = Stack(c, (81 * c, 81 * c, 27 * c, 9 * c, 2 * c),
-                                 3, c, "A", "MaskedConv2d")
+        c, self.levels = cfg["clrch"], cfg["dwtlevels"]
+        wavelet = part("transform", cfg["netType"])
+        wavelet.build(self, cfg)
+        self._analysis, self._synthesis = wavelet.analysis, wavelet.synthesis
+        ae = part("autoencoder", cfg["autoencoder"])
+        self.yl_ae = ae.build(cfg, c)
+        self.yh_ae = add_list(self, "yh_ae", [
+            ae.build(cfg, 3 * c) for _ in range(self.levels)])
 
-    def forward(self, xe, xo, training, generator):
-        L, so = self.levels, self.so
-        q_xe = quantize(xe, training, generator)
-        p = self.pixelcnn_xe(q_xe)
-        bits_xe = gaussian_bits(xe, p[:, 0::2], p[:, 1::2], training,
-                                generator)
-        info, q_xo = [None] * L, [None] * L
-        q = quantize(xo[L - 1], training, generator)
-        p = self.pixelcnn_xo(q)
-        info[L - 1] = gaussian_bits(xo[L - 1], p[:, 0::2], p[:, 1::2],
-                                    training, generator)
-        q_xo[L - 1] = q
-        con = up2(q)
-        for i in range(L - 2, -1, -1):
-            q = quantize(xo[i], training, generator)
-            csc, plc = self.csc[i](q), self.plc[i](con)
-            b, _, h, w = plc.shape
-            fused = torch.cat([plc.reshape(b, so, 81, h, w),
-                               csc.reshape(b, so, 81, h, w)], dim=2)
-            p = self.cgp[i](fused.reshape(b, so * 162, h, w))
-            info[i] = gaussian_bits(xo[i], p[:, 0::2], p[:, 1::2], training,
-                                    generator)
-            q_xo[i] = q
-            con = up2(q)
-        return bits_xe, info, q_xe, q_xo
+    def encode(self, x):
+        ll, xo = x, []
+        for lvl in range(self.levels):
+            ll, pk = self._analysis(self, ll)
+            xo.append(self.yh_ae[lvl].encode(pk))
+        return self.yl_ae.encode(ll), xo
 
-    def aux_loss(self):
-        return self.plc[0].layers[0].weight.new_zeros(())
+    def decode(self, xe, xo):
+        ll = self.yl_ae.decode(xe)
+        for lvl in range(self.levels - 1, -1, -1):
+            pk = self.yh_ae[lvl].decode(xo[lvl])
+            ll = self._synthesis(self, ll, pk)
+        return ll
 
 
 class Codec(nn.Module):
+    """The transform, then the ``entropy_layer`` part."""
+
     def __init__(self, cfg):
         super().__init__()
         self.transform = Transform(cfg)
-        kind = cfg["entropy_layer"]
-        if kind == "conditioned2ZTsepSubbands":
-            self.entropymodel = ZTSep(cfg)
-        elif kind == "factorized":
-            self.entropymodel = Factorized(cfg)
-        else:
-            raise ValueError(f"the reference has no entropy model {kind!r}")
+        self.entropymodel = part("entropy", cfg["entropy_layer"]).build(cfg)
 
     def forward(self, x, training, generator):
         xe, xo = self.transform.encode(x)

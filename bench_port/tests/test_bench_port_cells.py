@@ -8,10 +8,10 @@ import json
 import pytest
 
 from bench_port.harness import common
-from bench_port.tests.small import CELLS, rehearse
+from bench_port.tests.small import cells, rehearse
 
 
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("cell", cells())
 def test_cell_rehearsal_is_correct(cell):
     result, judged = rehearse(cell)
     assert result["correct"], (result, judged)

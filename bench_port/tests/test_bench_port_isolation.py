@@ -31,8 +31,8 @@ def test_loaded_modules_exclude_jax_and_the_jax_package():
     code = (
         "import sys\n"
         f"sys.path.insert(0, {ROOT!r})\n"
-        "from bench_port.tests.small import CELLS, rehearse\n"
-        "for cell in CELLS:\n"
+        "from bench_port.tests.small import cells, rehearse\n"
+        "for cell in cells():\n"
         "    assert rehearse(cell, seconds=0.2)[0]['correct']\n"
         "import bench_port.calibrate, bench_port.reference.model\n"
         "from bench_port.harness.common import banned_modules\n"
@@ -50,14 +50,23 @@ def test_banned_names_are_compared_whole():
 
 
 def test_reference_imports_nothing_of_the_port():
+    """Every file of ``reference/``, its part folders too, imports only
+    ``torch``, the standard library and ``reference/`` itself."""
     ref = os.path.join(HERE, "reference")
-    for name in os.listdir(ref):
-        if not name.endswith(".py"):
-            continue
-        for level, mod in _imports(os.path.join(ref, name)):
+    files = [os.path.join(base, f) for base, _, names in os.walk(ref)
+             for f in names if f.endswith(".py")]
+    assert any(os.sep in os.path.relpath(f, ref) for f in files)
+    for path in files:
+        name = os.path.relpath(path, ref)
+        depth = name.count(os.sep) + 1     # relative levels up to reference/
+        for level, mod in _imports(path):
             top = mod.split(".")[0]
-            assert level <= 1, (name, mod)     # nothing outside reference/
             assert top not in BANNED and top != PORT, (name, mod)
+            if level:
+                assert level <= depth, (name, mod)  # nothing outside it
+            else:
+                assert top in sys.stdlib_module_names or top == "torch" \
+                    or mod.startswith("bench_port.reference"), (name, mod)
 
 
 def test_only_one_module_imports_the_port():
